@@ -16,8 +16,23 @@
 5. map kernels: K1, K3 and K2 again, on the map after the init mapping
    and at the end of the slice, binned as the mapping loop bins them;
 6. tiers: the slice's final map compacted to a smaller tier and grown
-   back, against the same steps on the CPU and against its full render.
+   back, against the same steps on the CPU and against its full render;
+7. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
+   kernel_lab.py`, every variant) on the lab scene at the lab's size, with
+   the launch counts of that run; then every L1 variant and L2 against its
+   plain version (L2 also against autograd through the plain blend), on the
+   lab scene and on the slice's map after init binned as mapping bins it,
+   each timed with CUDA events beside K1/K2 on the same props;
+8. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
+   `SLAM`, the code path of `bench_torch.py`: warm-up until the frontend and
+   backend are initialized (by frame 162), 25 timed frames, and the checks
+   (finite poses, a full window of keyframes, scale-corrected keyframe ATE
+   under 8 cm, K1/K2/K3 launched in the run).
 
+The line before the last lists every kernel with its launches, its largest
+error against its plain version, its time, the plain version's time and
+its bound on an H100 (`bound_ms`: the larger of the bytes it must move over
+3.35 TB/s and its fp32 operations over 67 TFLOP/s, for this run's data).
 The last line is {"ok": true, "device": {...}}; any failed check exits
 non-zero before it.
 """
@@ -41,12 +56,52 @@ MAX_FRAMES = 96  # the first keyframe after frame 0 must come by then
 AFTER_KF = 2  # frames tracked against the map that the keyframe grew
 TOL = {"color": 3e-5, "alpha": 3e-5, "depth": 3e-4}
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5  # atol: fp32 sums of ~256 pixel terms in another order
-SOURCE = "monogs_dev_tpu_torch/csrc/blend.cu"
+# L2's absolute floor, relative to the largest gradient (as tests/test_torch_gpu.py
+# holds K2): on the lab scene (max |grad| ~500) float32 autograd and K2 themselves
+# miss the absolute 1e-5 floor against float64 autograd (PERF.md, Findings)
+L2_ATOL_REL = 1e-5
+MONO_FRAME_CAP = 162  # bench.py:106: the last warm-up frame that leaves 25 to time
+MONO_ATE_BAR = 0.08  # tests/test_system.py:317
+SOURCES = {"K": "monogs_dev_tpu_torch/csrc/blend.cu", "L": "monogs_dev_tpu_torch/csrc/blend_lab.cu"}
 REPLACES = {
     "K1": "monogs_dev_tpu/ops/blend_pallas.py:177",
     "K3": "monogs_dev_tpu/ops/blend_pallas.py:211",
     "K2": "monogs_dev_tpu/ops/blend_pallas.py:322",
+    "L1": "tools/kernel_lab.py:418",
+    "L2": "tools/kernel_lab.py:479",
 }
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# fp32 ops per (entry, pixel) pair, counted from the sources (expf, log1pf
+# and a division as one op each; the gradients' pixel sums as one add per
+# component): K1 29, K3 30 (+ the touch test), L1 32 (trimat 34, rank-6 31),
+# K2 63, L2 61 (40 in the pixel pass, 11 moments FFMA)
+OPS_PER_PAIR = {"K1": 29, "K3": 30, "K2": 63, "L2": 61, "L1": 32, "L1/trimat": 34,
+                "L1/mxu": 31, "L1/lean": 31}
+
+
+def bound(name, counts, n_done, p):
+    """(bound_ms, bound_by) of kernel `name` on one call: bytes over HBM_BPS
+    against ops over FP32_OPS. Bytes count the blended entries' props
+    (sum(counts) x 40 B) and the per-pixel tensors once; ops count the
+    (entry, pixel) pairs the data needs: sum(n_done) for K1-K3 and L2 (the
+    entries each pixel multiplies in before it saturates), sum(counts) x P
+    for L1 (no early exit)."""
+    entries = float(counts.sum())
+    t = counts.shape[0]
+    px_bytes = 4.0 * t * p
+    if name.startswith("L1"):
+        nbytes = 40 * entries + 4 * t + 5 * px_bytes
+        pairs = entries * p
+    elif name in ("K2", "L2"):
+        nbytes = 40 * entries + 7 * px_bytes + 40 * entries  # props in, d_props out
+        pairs = float(n_done.sum())
+    else:  # K1, K3: color, depth, alpha, t_final, n_done (+ touch)
+        nbytes = 40 * entries + 4 * t + 7 * px_bytes + (4 * entries if name == "K3" else 0)
+        pairs = float(n_done.sum())
+    ops = pairs * OPS_PER_PAIR.get(name, OPS_PER_PAIR[name[:2]])
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / FP32_OPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -164,7 +219,9 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
         lambda: torch.autograd.grad(plain_loss, pr, retain_graph=True), reps=5)
     for name in ("K1", "K3", "K2"):
         r = results[name]
-        print(f"{label} {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+        r["bound_ms"], r["bound_by"] = bound(name, counts, k1[4], p)
+        print(f"{label} {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return results
 
 
@@ -201,8 +258,8 @@ def map_kernel_phase(slam, snapshots):
     for label, params, active, T in snapshots:
         res = check_kernels(label, params, active, T, slam.intr, slam.raster_cfg,
                             dilate=slam.step_cfg.mapping_rebin_dilation)
-        for name, r in res.items():
-            worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+        for name in ("K1", "K2", "K3"):
+            worst[name] = max(worst.get(name, 0.0), res[name]["max_abs_err"])
     return worst
 
 
@@ -258,6 +315,176 @@ def tier_phase(slam):
     print(f"tiers: {rows} -> {tier} -> {rows} rows, {alive} alive, every field equal to "
           f"the CPU's; render of kf {kf} vs full map {errs}, n_touched equal "
           f"({int((comp.n_touched > 0).sum())} touched)", flush=True)
+
+
+def check_lab(label, t_props, counts, tx_n, rcfg):
+    """Every L1 variant against its plain version, and L2 against its plain
+    version and against autograd through the plain blend (K2's tolerances),
+    on these props; each timed beside its plain version with CUDA events."""
+    import torch
+
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.ops import blend_lab as BL
+    from monogs_dev_tpu_torch.ops.rasterize import tile_wh
+
+    tw, th = tile_wh(rcfg)
+    tile, p = (tw, th), tw * th
+    cfg = (rcfg.alpha_clamp, rcfg.alpha_min, rcfg.transmittance_min)
+    res = {}
+    with torch.no_grad():
+        for v in BL.LAB_VARIANTS:
+            out = BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg)
+            ref = BL.lab_blend_reference(v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group)
+            torch.cuda.synchronize()
+            errs = {k: float((a - b).abs().max()) for k, a, b in zip(("color", "depth", "alpha"),
+                                                                    out, ref)}
+            for k, e in errs.items():
+                if not e <= TOL[k]:
+                    fail(f"{label} L1/{v} {k} max |err| {e} > {TOL[k]}")
+            r = res[f"L1/{v}"] = {"max_abs_err": max(errs.values()), "errs": errs}
+            r["ms"] = cuda_ms(lambda v=v: BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg))
+            r["plain_ms"] = cuda_ms(lambda v=v: BL.lab_blend_reference(
+                v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group), reps=3)
+            r["bound_ms"], r["bound_by"] = bound(f"L1/{v}", counts, None, p)
+            print(f"{label} L1/{v} vs plain: {errs}; {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+
+        t_final, n_done = BL.blend_residuals(t_props, counts, tx_n, tile, *cfg)
+        gen = torch.Generator(device=t_props.device).manual_seed(1)
+        cots = (torch.randn((t_props.shape[0], 3, p), generator=gen, device=t_props.device),
+                0.1 * torch.randn((t_props.shape[0], p), generator=gen, device=t_props.device),
+                torch.randn((t_props.shape[0], p), generator=gen, device=t_props.device))
+        args = (t_props, t_final, n_done, *cots, tx_n, tile, *cfg[:2])
+        got = BL.moments_backward_cuda(*args)
+        plain = BL.moments_backward_reference(*args, rcfg.tile_group)
+    # the gradient references: autograd through the plain blend in float32
+    # (what K2 is held to) and, for scale, in float64
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        pr = t_props.to(dtype).requires_grad_(True)
+        out = B.blend_tiles_reference(pr, counts, tx_n, tile, *cfg, tile_group=rcfg.tile_group)
+        (g,) = torch.autograd.grad(sum((o * c.to(dtype)).sum() for o, c in zip(out[:3], cots)),
+                                   pr)
+        refs[dtype] = g.to(torch.float64)
+        del pr, out
+    with torch.no_grad():
+        k2 = B.blend_backward_cuda(t_props, t_final, n_done, *cots, tx_n, tile, *cfg[:2])
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label} L2: non-finite gradient")
+    g32, g64 = refs[torch.float32], refs[torch.float64]
+    errs, n_bad = {}, {}
+    for what, x, ref in (("L2 vs plain", got, plain), ("L2 vs plain autograd", got, g32),
+                         ("L2 vs float64 autograd", got, g64),
+                         ("K2 vs float64 autograd", k2, g64),
+                         ("float32 autograd vs float64 autograd", g32, g64)):
+        x, ref = x.to(torch.float64), ref.to(torch.float64)
+        err = (x - ref).abs()
+        ratio = err / (GRAD_ATOL + GRAD_RTOL * ref.abs())
+        atol = L2_ATOL_REL * float(ref.abs().max())
+        n_bad[what] = int((err > atol + GRAD_RTOL * ref.abs()).sum())
+        errs[what] = float(err.max())
+        t_i, e_i, c_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+        print(f"{label} {what}: max |err| {errs[what]:.4g}; worst entry against K2's "
+              f"tolerance (rtol {GRAD_RTOL}, atol {GRAD_ATOL}): tile {t_i} entry {e_i} column "
+              f"{c_i}, err {float(err[t_i, e_i, c_i]):.4g} on {float(ref[t_i, e_i, c_i]):.6g} "
+              f"({float(ratio.max()):.3g} x tol; mean {t_props[t_i, e_i, 0:2].tolist()}, conic "
+              f"{t_props[t_i, e_i, 2:5].tolist()}), {int((ratio > 1.0).sum())} of "
+              f"{ratio.numel()} outside it; outside rtol {GRAD_RTOL} atol {atol:.3g} "
+              f"({L2_ATOL_REL} x max |grad| {float(ref.abs().max()):.4g}): {n_bad[what]}",
+              flush=True)
+    for what in ("L2 vs plain", "L2 vs plain autograd"):
+        if n_bad[what]:
+            fail(f"{label} {what}: {n_bad[what]} entries outside tolerance")
+    errs = {k: errs[k] for k in ("L2 vs plain", "L2 vs plain autograd")}
+    r = res["L2"] = {"max_abs_err": max(errs.values())}
+    with torch.no_grad():
+        r["ms"] = cuda_ms(lambda: BL.moments_backward_cuda(*args))
+        r["plain_ms"] = cuda_ms(lambda: BL.moments_backward_reference(*args, rcfg.tile_group),
+                                reps=3)
+    r["bound_ms"], r["bound_by"] = bound("L2", counts, n_done, p)
+    print(f"{label} L2: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return res
+
+
+def lab_phase(dev, snapshot, intr, rcfg, dilate):
+    """The lab's entry point on the lab scene (the launch counts of that
+    run), then L1/L2 against their plain versions on the lab scene and on
+    the slice's post-init map."""
+    import torch
+
+    from monogs_dev_tpu_torch.data.synthetic import load_lab_scene
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.ops import blend_lab as BL
+    from monogs_dev_tpu_torch.tools import kernel_lab as KL
+
+    B.reset_launch_counts()
+    for v in BL.VARIANT_LAUNCHES:
+        BL.VARIANT_LAUNCHES[v] = 0
+    KL.run_lab(KL.ALL_VARIANTS, dev)
+    torch.cuda.synchronize()
+    launches = {f"L1/{v}": n for v, n in BL.VARIANT_LAUNCHES.items()}
+    launches["L2"] = B.LAUNCHES["L2"]
+    print(f"lab launches: {launches} (K1 {B.LAUNCHES['K1']}, K2 {B.LAUNCHES['K2']})", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the lab's run")
+
+    params = load_lab_scene(dev)
+    active = torch.ones(params.xyz.shape[0], dtype=torch.bool, device=dev)
+    t_props, counts = KL.tile_props(params, active, torch.eye(4, device=dev), KL.LAB_INTR,
+                                    KL.LAB_RASTER)
+    tx_n = -(-KL.LAB_INTR.width // KL.LAB_RASTER.tile)
+    print(f"lab scene: props {tuple(t_props.shape)}, entries {int(counts.sum())}, "
+          f"max per tile {int(counts.max())}", flush=True)
+    res = check_lab("lab", t_props, counts, tx_n, KL.LAB_RASTER)
+    label, m_params, m_active, T = snapshot
+    m_props, m_counts = KL.tile_props(m_params, m_active, T, intr, rcfg, dilate=dilate)
+    print(f"{label} lab: props {tuple(m_props.shape)}, entries {int(m_counts.sum())}, max per "
+          f"tile {int(m_counts.max())}, tiles over 256 entries {int((m_counts > 256).sum())}",
+          flush=True)
+    res_map = check_lab(label, m_props, m_counts, -(-intr.width // rcfg.tile), rcfg)
+    for name, r in res.items():
+        r["max_abs_err"] = max(r["max_abs_err"], res_map[name]["max_abs_err"])
+        r["launches"] = launches[name]
+    return res
+
+
+def mono_phase(config, dev):
+    """bench_torch.py's run: bench_vga forced monocular, warm-up until both
+    halves are initialized (by frame MONO_FRAME_CAP), 25 timed frames."""
+    import torch
+
+    import bench_torch
+    from monogs_dev_tpu_torch.ops import blend as B
+
+    B.reset_launch_counts()
+    slam, info = bench_torch.run_bench(config, dev)
+    torch.cuda.synchronize()
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    slam.stop()
+    fe = slam.frontend
+    ate = slam.keyframe_ate()
+    info.update(keyframes=list(fe.kf_indices), frames=len(fe.cameras),
+                keyframe_ate_cm=100.0 * ate, alive=slam.n_alive(), launches=launches,
+                timers=slam.timers.summary(), telemetry=slam.engine.telemetry)
+    print("mono: " + json.dumps(info), flush=True)
+    print(f"mono frames/s: {info['fps']:.4f} over frames [{info['warm_frames']}, "
+          f"{info['warm_frames'] + bench_torch.N_MEAS})", flush=True)
+    if not info["initialized"] or info["warm_frames"] > MONO_FRAME_CAP:
+        fail(f"the monocular run did not initialize by frame {MONO_FRAME_CAP}")
+    if not all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras):
+        fail("non-finite pose in the monocular run")
+    if len(fe.kf_indices) < fe.window_size:
+        fail(f"{len(fe.kf_indices)} keyframes, fewer than the window's {fe.window_size}")
+    if not (np.isfinite(ate) and ate < MONO_ATE_BAR):
+        fail(f"monocular keyframe ATE {ate} m is not finite and under {MONO_ATE_BAR} m")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched in the monocular run")
+    return info
 
 
 def slice_phase(config, dev):
@@ -322,13 +549,14 @@ def slice_phase(config, dev):
     for name, v in (("keyframe", ate), ("all-frame", ate_all)):
         if not (np.isfinite(v) and v < 0.03):
             fail(f"{name} ATE {v} m is not finite and under 3 cm")
-    for name in launches:
+    for name in ("K1", "K2", "K3"):
         if launches_12[name] <= 0:
             fail(f"kernel {name} was not launched in frames 0..11 of the slice")
     return slam, launches, snapshots
 
 
 def main() -> int:
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -349,24 +577,50 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(CONFIG)
     kres = scene_kernel_phase(config, dev)
-    slam, launches, snapshots = slice_phase(config, dev)
+    slam, _, snapshots = slice_phase(config, dev)
     worst = map_kernel_phase(slam, snapshots)
     tier_phase(slam)
+    lres = lab_phase(dev, snapshots[0], slam.intr, slam.raster_cfg,
+                     slam.step_cfg.mapping_rebin_dilation)
+    del slam
+    mono = mono_phase(load_config(CONFIG), dev)
 
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCES["K"],
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": mono["launches"][name],
             "max_abs_err": max(kres[name]["max_abs_err"], worst[name]),
             "ms": kres[name]["ms"],
             "plain_ms": kres[name]["plain_ms"],
+            "bound_ms": kres[name]["bound_ms"],
+            "bound_by": kres[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the blend
         }
         for name in ("K1", "K2", "K3")
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES["L"],
+            "replaces": REPLACES[name[:2]],
+            "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        }
+        for name, r in lres.items()
     ]
-    # ms/plain_ms: the scene props of phase 3; max_abs_err: phases 3 and 5
+    # K1-K3: launches in the monocular run (phase 8), ms/plain_ms/bound_ms on
+    # the bench scene's props (phase 3), max_abs_err over phases 3 and 5;
+    # L1/L2: launches in the lab's run, ms/plain_ms/bound_ms on the lab
+    # scene's props, max_abs_err over the lab scene and the post-init map
+    print(f"wall time: {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -423,12 +423,20 @@ class BackendEngine:
                 kf_ids[s] = kf_idx
         sorted_window = sorted(self.current_window, reverse=True)
         third_newest = sorted_window[2] if len(sorted_window) > 2 else 0
+        prev_active = self.gmap.aux.active
         self.gmap = visibility_prune(
             self.gmap, torch.as_tensor(vis, device=self.device),
             torch.as_tensor(valid, device=self.device),
             torch.as_tensor(kf_ids, device=self.device), third_newest, self.initialized,
             self.prune_mode, self.cfg.monocular,
         )
+        if self.cfg.monocular:
+            # the keyframe policy reads these vectors: drop the pruned rows;
+            # rows past the tier were never prunable and stay
+            kept = (self.gmap.aux.active | ~prev_active).cpu().numpy()
+            kept = np.pad(kept, (0, self.capacity - kept.shape[0]), constant_values=True)
+            for k in list(self.occ_aware_visibility):
+                self.occ_aware_visibility[k] = np.asarray(self.occ_aware_visibility[k]) & kept
 
     # ------------------------------------------------------------- commands
 

@@ -1,8 +1,12 @@
 """Tracking frontend: per-frame loop, keyframe policy, window management
-(port of the RGB-D path of `monogs_dev_tpu/core/frontend.py`).
+(port of `monogs_dev_tpu/core/frontend.py`, Gauss-Newton tracking, RGB-D
+and monocular).
 
 Tracking runs on the device (core/tracking_gn.py); the keyframe policy and
-window bookkeeping stay host-side numpy, as in the reference.
+window bookkeeping stay host-side numpy, as in the reference. A monocular
+run bootstraps from a noisy depth sheet, inserts keyframes with pseudo-depth
+from the render, and counts as initialized once the window is full; a
+keyframe evicted before then resets the system.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
 from .backend import BackendEngine
+from .insertion import mono_bootstrap_depth, pseudo_depth_map
 from .keyframe import Keyframe
 from .params import StepConfig
 from .tracking import TrackResult
@@ -92,11 +97,8 @@ def add_to_window(cur_frame_idx: int, cur_vis: np.ndarray,
 
 class FrontEnd:
     def __init__(self, config, dataset, engine: BackendEngine, step_cfg: StepConfig,
-                 intr: Intrinsics, raster_cfg: RasterConfig, backend_thread=None):
-        if step_cfg.monocular:
-            raise NotImplementedError(
-                "the monocular path (bootstrap and pseudo-depth) is not ported yet"
-            )
+                 intr: Intrinsics, raster_cfg: RasterConfig, backend_thread=None,
+                 seed: int = 1):
         if step_cfg.tracking_solver != "gn":
             raise NotImplementedError(
                 "only the Gauss-Newton tracker (Training.tracking_solver: gn) is ported"
@@ -121,6 +123,8 @@ class FrontEnd:
         self._compact_m = 0
 
         training = config["Training"]
+        self.monocular = step_cfg.monocular
+        self.use_depth = not self.monocular
         self.kf_interval = int(training.get("kf_interval", 5))
         self.window_size = int(training.get("window_size", 8))
         self.kf_translation = float(training.get("kf_translation", 0.08))
@@ -130,12 +134,13 @@ class FrontEnd:
         self.single_thread = bool(training.get("single_thread", False))
         self.const_velocity = bool(training.get("const_velocity_init", False))
         self.bg_color = torch.zeros(3, device=self.device)
+        self.gen = torch.Generator().manual_seed(seed)  # monocular depth noise
 
         self.cameras: Dict[int, FrameInfo] = {}
         self.kf_indices: List[int] = []
         self.current_window: List[int] = []
         self.occ_aware_visibility: Dict[int, np.ndarray] = {}
-        self.initialized = True
+        self.initialized = not self.monocular
         self.reset = True
         self.requested_init = False
         self.requested_keyframe = 0
@@ -151,6 +156,7 @@ class FrontEnd:
             {min(cap, max(4096, cap // 4)), min(cap, max(4096, cap // 2)), cap}
         )
         self._snapshot_hw: Optional[int] = None
+        self._zero_depth: Optional[torch.Tensor] = None  # monocular tracking depth
 
     # ----------------------------------------------------------------- comms
 
@@ -224,19 +230,31 @@ class FrontEnd:
         return torch.where(image.sum(dim=-1) > self.cfg.rgb_boundary_threshold, depth,
                            torch.zeros_like(depth))
 
+    def _noise_draws(self):
+        """Random source of one monocular depth map: the bootstrap sheet or
+        a keyframe's pseudo-depth."""
+        return self.gen
+
     def initialize(self, cur_frame_idx: int, image, depth, T_gt) -> None:
-        """Bootstrap / reset: the first frame becomes keyframe 0 at its GT pose."""
+        """Bootstrap / reset: the frame becomes keyframe 0 at its GT pose,
+        with its sensor depth or, monocular, a noisy depth sheet."""
+        self.initialized = not self.monocular
         self.kf_indices = [cur_frame_idx]
         self.current_window = [cur_frame_idx]
         self.occ_aware_visibility = {}
         self.anchor_idx = cur_frame_idx
-        kf = Keyframe(idx=cur_frame_idx, image=image, depth=depth,
+        kf = Keyframe(idx=cur_frame_idx, image=image, depth=depth if self.use_depth else None,
                       T_w2c=np.asarray(T_gt, np.float32), exposure=np.zeros(2, np.float32),
                       T_gt=T_gt)
         self.cameras[cur_frame_idx] = FrameInfo(cur_frame_idx, np.asarray(T_gt), T_gt,
                                                 np.zeros(2), is_keyframe=True)
+        if self.monocular or depth is None:
+            depth_map = mono_bootstrap_depth(self._noise_draws(), self.intr.height,
+                                             self.intr.width, init=True, device=self.device)
+        else:
+            depth_map = self._valid_rgb_depth(image, depth)
         self.requested_init = True
-        self._send(["init", cur_frame_idx, kf, self._valid_rgb_depth(image, depth)])
+        self._send(["init", cur_frame_idx, kf, depth_map])
         self.reset = False
 
     def _tracking_tier(self, active) -> int:
@@ -282,12 +300,18 @@ class FrontEnd:
         tier = self._tracking_tier(active)
         if tier < active.shape[0]:
             params, active = params.map(lambda x: x[:tier]), active[:tier]
+        use_depth = self.use_depth and depth is not None
+        if not use_depth:
+            if self._zero_depth is None:
+                self._zero_depth = torch.zeros((self.intr.height, self.intr.width),
+                                               device=self.device)
+            depth = self._zero_depth
         self._compact_m = self._choose_compact(tier)
         cfg = dataclasses.replace(self.cfg, track_compact=self._compact_m)
         result = track_frame_gn(
             params, active, np.asarray(T_init, np.float32), np.zeros(2, np.float32),
             image, depth, None, self.bg_color, cfg, self.intr, self.track_raster_cfg,
-            use_depth=True,
+            use_depth=use_depth,
         )
         touched = result.touched.cpu().numpy()
         cap = self.engine.capacity
@@ -308,6 +332,14 @@ class FrontEnd:
         if not np.isfinite(self.median_depth):
             self.median_depth = 4.0
         return result
+
+    def make_keyframe_depth(self, image, depth, track: TrackResult):
+        """A new keyframe's insertion depth: sensor depth on valid RGB, or,
+        monocular, pseudo-depth from the render at the tracked pose."""
+        if self.monocular:
+            return pseudo_depth_map(self._noise_draws(), track.depth, track.opacity, image,
+                                    self.median_depth, self.cfg.rgb_boundary_threshold)
+        return self._valid_rgb_depth(image, depth)
 
     def _tally(self, name: str, t0: float) -> None:
         if self.timers is not None:
@@ -330,7 +362,10 @@ class FrontEnd:
                 pump()
                 self._tally("pump", t0)
             self._drain_frontend_queue()
-            if self.requested_init or (self.single_thread and self.requested_keyframe > 0):
+            if self.requested_init or (
+                    (self.single_thread or not self.initialized) and self.requested_keyframe > 0):
+                # wait for the backend: an init, or a keyframe while the
+                # frontend is single-threaded or not yet initialized
                 if pump is not None:
                     pump(idle_budget=0)
                     self._drain_frontend_queue()
@@ -343,6 +378,8 @@ class FrontEnd:
                 self.initialize(cur_frame_idx, image, depth, T_gt)
                 cur_frame_idx += 1
                 continue
+
+            self.initialized = self.initialized or len(self.current_window) == self.window_size
 
             t0 = time.time()
             track = self.tracking(cur_frame_idx, image, depth)
@@ -375,14 +412,22 @@ class FrontEnd:
                 t0 = time.time()
                 poses = {i: self.cameras[i].T_est for i in self.current_window}
                 poses[cur_frame_idx] = track.T_w2c
-                self.current_window, _ = add_to_window(
+                self.current_window, removed = add_to_window(
                     cur_frame_idx, cur_vis, self.occ_aware_visibility, self.current_window,
-                    poses, self.kf_cutoff, True, self.window_size,
+                    poses, self.kf_cutoff, self.initialized, self.window_size,
                 )
+                if self.monocular and not self.initialized and removed is not None:
+                    self.reset = True
+                    Log(f"Keyframes lacks sufficient overlap to initialize the map, "
+                        f"resetting (evicted {removed}; |cur_vis|="
+                        f"{int(np.count_nonzero(cur_vis))})")
+                    continue
                 if int(track.tile_overflow) > 0:
                     Log(f"raster tile-list overflow: {int(track.tile_overflow)} entries "
                         f"dropped (raise TPU.max_per_tile)", tag="MonoGS-TPU")
-                kf = Keyframe(idx=cur_frame_idx, image=image, depth=depth, T_w2c=track.T_w2c,
+                depth_map = self.make_keyframe_depth(image, depth, track)
+                kf = Keyframe(idx=cur_frame_idx, image=image,
+                              depth=depth if self.use_depth else None, T_w2c=track.T_w2c,
                               exposure=track.exposure_ab, T_gt=T_gt)
                 self.cameras[cur_frame_idx].is_keyframe = True
                 self.kf_indices.append(cur_frame_idx)
@@ -390,7 +435,7 @@ class FrontEnd:
                     f"window {self.current_window} (n_vis {int(np.count_nonzero(cur_vis))})")
                 self.requested_keyframe += 1
                 self._send(["keyframe", cur_frame_idx, kf, list(self.current_window),
-                            self._valid_rgb_depth(image, depth)])
+                            depth_map])
                 self._tally("keyframe", t0)
             cur_frame_idx += 1
 

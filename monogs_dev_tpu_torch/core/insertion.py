@@ -1,9 +1,14 @@
-"""Keyframe -> new Gaussians, on the device (port of the RGB-D path of
+"""Keyframe -> new Gaussians, on the device (port of
 `monogs_dev_tpu/core/insertion.py`).
 
 Back-projection with the rasterizer's pixel convention
 (``x = (u + 0.5 - cx) z / fx``), a 1/downsample random subsample of the
-valid-depth pixels, kNN scale init, SH colour init, opacity 0.5.
+valid-depth pixels, kNN scale init, SH colour init, opacity 0.5; and the
+monocular depth a keyframe is inserted with: the bootstrap sheet before any
+map exists, the noisy pseudo-depth from the render after.
+
+Random draws come from a `torch.Generator`, or are passed in (the tests
+replay the JAX package's draws).
 """
 
 from __future__ import annotations
@@ -18,6 +23,16 @@ from ..models.camera import Intrinsics
 from ..models.gaussians import GaussianParams
 from ..ops.knn import mean_sq_dist_knn3
 from ..utils.losses import _median
+
+
+def _normal(draws: Union[torch.Generator, torch.Tensor, np.ndarray], shape, device) -> torch.Tensor:
+    """Standard normal draws of `shape`: drawn from a Generator, or given."""
+    if isinstance(draws, torch.Generator):
+        return torch.randn(shape, generator=draws, device=draws.device).to(device)
+    out = torch.as_tensor(np.array(draws), dtype=torch.float32, device=device)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"draws of shape {tuple(out.shape)}, need {tuple(shape)}")
+    return out
 
 
 def new_points_from_frame(draws: Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]],
@@ -76,3 +91,46 @@ def new_points_from_frame(draws: Union[torch.Generator, Tuple[torch.Tensor, torc
         opacity_logit=torch.zeros((budget,), device=dev),
     )
     return params, sel_valid
+
+
+def pseudo_depth_map(draws, render_depth: torch.Tensor, render_opacity: torch.Tensor,
+                     gt_image: torch.Tensor, fallback_depth: float = 2.0,
+                     rgb_boundary_threshold: float = 0.01) -> torch.Tensor:
+    """Monocular keyframe pseudo-depth from the render at the new keyframe.
+
+    Outlier depths (|d - median| > std, or invalid) are replaced by the
+    median; noise sigma is 0.5 std there and 0.2 std elsewhere; pixels of
+    invalid RGB are zero. When no pixel is valid (opacity never reaches
+    0.95, as right after a bootstrap reset) the median is `fallback_depth`
+    and the std 5% of it: a noisy constant sheet. `draws`: a Generator or
+    (H, W) standard normal draws."""
+    dev = render_depth.device
+    valid_rgb = gt_image.sum(dim=-1) > rgb_boundary_threshold
+    valid = (render_depth > 0.0) & (render_opacity > 0.95) & valid_rgb
+    n = int(valid.sum())
+    if n:
+        median = _median(render_depth[valid])
+        mean = torch.where(valid, render_depth, torch.zeros_like(render_depth)).sum() / n
+        dev2 = torch.where(valid, render_depth - mean, torch.zeros_like(render_depth)) ** 2
+        std = torch.sqrt(dev2.sum() / n)
+    else:
+        median = torch.tensor(float(fallback_depth), device=dev)
+        std = 0.05 * median
+    invalid = (render_depth > median + std) | (render_depth < median - std) | ~valid
+    depth = torch.where(invalid, median, render_depth)
+    noise = _normal(draws, render_depth.shape, dev)
+    depth = depth + noise * torch.where(invalid, std * 0.5, std * 0.2)
+    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+    return torch.where(valid_rgb, depth, torch.zeros_like(depth))
+
+
+def mono_bootstrap_depth(draws, height: int, width: int, init: bool, device,
+                         scale: float = 2.0) -> torch.Tensor:
+    """Depth used when no estimate exists yet: the first keyframe's
+    2 +- 0.3 sheet (init=True), else the map model's
+    (1 + (u - 0.5) 0.05) scale fallback. `draws`: a Generator or (H, W)
+    standard normal draws."""
+    noise = _normal(draws, (height, width), device)
+    if init:
+        return 2.0 * torch.ones((height, width), device=device) + noise * 0.3
+    return (torch.ones((height, width), device=device) + (noise - 0.5) * 0.05) * scale

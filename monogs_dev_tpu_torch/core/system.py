@@ -69,7 +69,8 @@ class SLAM:
         self.backend_thread = (None if self.backend_single_thread
                                else InlineBackendScheduler(self.engine))
         self.frontend = FrontEnd(config, self.dataset, self.engine, self.step_cfg, self.intr,
-                                 self.raster_cfg, backend_thread=self.backend_thread)
+                                 self.raster_cfg, backend_thread=self.backend_thread,
+                                 seed=seed + 1)
         self.fps: float = 0.0
         self.timers = PhaseTimers()
         self.frontend.timers = self.timers

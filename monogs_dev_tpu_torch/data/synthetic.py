@@ -51,6 +51,29 @@ def orbit_pose(i: int, n_frames: int, radius: float = 0.5, sweep: float = 1.2,
     return np.linalg.inv(T_c2w)
 
 
+def load_scene(path: str, want: dict, device):
+    """Scene params from an npz written by `tools/export_synthetic_scene.py`,
+    checked against the generator settings in `want` (e.g. gaussian_scale)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"synthetic scene {path} not found: write it with "
+            "`python tools/export_synthetic_scene.py --config <yaml>`"
+        )
+    with np.load(path) as z:
+        arrays = dict(z)
+    for k, v in want.items():
+        if k in arrays and not np.isclose(float(arrays[k]), v):
+            raise ValueError(f"scene file {path} has {k}={float(arrays[k])}, wanted {v}")
+    return params_from_numpy(arrays, device)
+
+
+def load_lab_scene(device):
+    """The kernel lab's scene (tools/kernel_lab.py:621): 32,768 blobs of
+    scale 0.03 drawn by the JAX package from seed 0, seen from eye(4)."""
+    return load_scene(os.path.join(SCENE_DIR, scene_file_name("blobs", 0, 32768)),
+                      {"gaussian_scale": 0.03}, device)
+
+
 class SyntheticDataset:
     """Dataset group keys: scene, n_frames, n_gaussians, seed, sweep, ease,
     profile, the Calibration block, and optionally scene_file."""
@@ -68,25 +91,16 @@ class SyntheticDataset:
         self.intr = Intrinsics(fx=self.fx, fy=self.fy, cx=self.cx, cy=self.cy,
                                width=self.width, height=self.height)
         kind = ds.get("scene", "blobs")
-        path = ds.get("scene_file") or os.path.join(
-            SCENE_DIR, scene_file_name(kind, int(ds.get("seed", 0)),
-                                       int(ds.get("n_gaussians", 2000))))
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"synthetic scene {path} not found: write it with "
-                "`python tools/export_synthetic_scene.py --config <yaml>`"
-            )
-        with np.load(path) as z:
-            arrays = dict(z)
         default_scale = 0.035 if kind == "surface" else 0.06
         want = {"gaussian_scale": float(ds.get("gaussian_scale", default_scale))}
         if kind == "surface":
             want["extent_x"] = float(ds.get("extent_x", 5.0))
             want["extent_y"] = float(ds.get("extent_y", 3.0))
-        for k, v in want.items():
-            if k in arrays and not np.isclose(float(arrays[k]), v):
-                raise ValueError(f"scene file {path} has {k}={float(arrays[k])}, config wants {v}")
-        self.scene_params = params_from_numpy(arrays, self.device)
+        self.scene_params = load_scene(
+            ds.get("scene_file") or os.path.join(
+                SCENE_DIR, scene_file_name(kind, int(ds.get("seed", 0)),
+                                           int(ds.get("n_gaussians", 2000)))),
+            want, self.device)
         self.scene_active = torch.ones(self.scene_params.xyz.shape[0], dtype=torch.bool,
                                        device=self.device)
         sweep = float(ds.get("sweep", 1.2))

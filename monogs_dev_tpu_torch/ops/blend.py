@@ -7,8 +7,9 @@ Counterpart of `monogs_dev_tpu/ops/blend_pallas.py`. Three kernels live in
   K3  forward blend plus per-entry touch counts (emit_touch=True)
   K2  back-to-front replay backward (replaces `_blend_bwd_kernel`)
 
-They are compiled with `nvcc` for `sm_90a` at first use into `build/` and
-called through `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on the
+They are compiled with `nvcc` for `sm_90a` at first use into `build/`,
+together with the kernel lab's `csrc/blend_lab.cu` (ops/blend_lab.py), into
+one library called through `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on the
 device of `props`: a CUDA tensor goes to the kernels (a build or launch
 failure raises), a CPU tensor goes to `blend_tiles_reference`, the plain
 torch port of the JAX package's `_blend_group` (ops/rasterize.py), whose
@@ -31,17 +32,18 @@ import torch
 
 D_IN = 10
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "blend.cu")
+SOURCES = [os.path.join(_PKG, "csrc", name) for name in ("blend.cu", "blend_lab.cu")]
 _BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # alpha must round exactly as in the plain version (touch counts)
     "-fmad=false",
 ]
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+# (L1 and L2 are the kernel lab's, ops/blend_lab.py)
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "L1": 0, "L2": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -63,28 +65,40 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Tuple[str, float]:
-    """Compile `csrc/blend.cu` (content-hashed library name) and return
-    (library path, seconds spent compiling; 0.0 when already built)."""
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Compile `csrc/blend.cu` and `csrc/blend_lab.cu` into one library
+    (named by a hash of both sources and the flags) and return (library
+    path, seconds spent compiling; 0.0 when already built). Each source gets
+    its own `nvcc`, all started together; one more links them."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    key = h.hexdigest()[:12]
     out = os.path.join(_BUILD_DIR, f"libblend_{key}.so")
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(_BUILD_DIR, exist_ok=True)
     t0 = time.time()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    proc = subprocess.run(
-        [_nvcc(), *flags, "-o", tmp, _SOURCE], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp_dir:
+        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        objs = [os.path.join(tmp_dir, os.path.basename(src) + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [(src, proc.communicate()[1], proc.returncode) for src, proc in zip(SOURCES, procs)]
+        failed = [f"{src}:\n{err}" for src, err, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        if verbose:
+            for _, err, _ in logs:
+                print(err, end="")
+        lib = os.path.join(tmp_dir, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {objs}:\n{proc.stderr}")
+        os.replace(lib, out)
     return out, time.time() - t0
 
 
@@ -108,6 +122,16 @@ def _load():
                 _c_void_p, _c_void_p,
             ]
             lib.blend_bwd.restype = _c_int
+            lib.lab_blend_fwd.argtypes = [
+                _c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                _c_float, _c_float, _c_float, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            ]
+            lib.lab_blend_fwd.restype = _c_int
+            lib.lab_moments_bwd.argtypes = [
+                _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
+                _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            ]
+            lib.lab_moments_bwd.restype = _c_int
             _lib = lib
     return _lib
 

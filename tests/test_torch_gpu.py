@@ -1,4 +1,5 @@
-"""The CUDA blend kernels against the plain torch blend, on a card.
+"""The CUDA blend kernels (K1-K3) and the kernel lab's (L1 variants, L2)
+against their plain torch versions, on a card.
 
 Every test here is marked `gpu` and skips itself without a CUDA device. The
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -24,6 +25,7 @@ import torch
 from monogs_dev_tpu_torch.models.camera import Intrinsics
 from monogs_dev_tpu_torch.models.gaussians import GaussianParams
 from monogs_dev_tpu_torch.ops import blend as B
+from monogs_dev_tpu_torch.ops import blend_lab as BL
 from monogs_dev_tpu_torch.ops.raster_types import RasterConfig
 from monogs_dev_tpu_torch.ops.rasterize import render_tiled
 
@@ -130,3 +132,47 @@ def test_render_tiled_on_card_matches_cpu(cuda):
     diff = (gpu.n_touched.cpu() - cpu.n_touched).abs()
     assert int(diff.max()) <= 2 and float((diff > 0).float().mean()) < 0.01
     assert int(gpu.n_touched.sum()) > 0
+
+
+def _lab_props(case, seed):
+    """The cases above with props zeroed past each tile's count (the L1
+    contract) and a tile count that pair4 divides."""
+    l_max, opacity = CASES[case]
+    props, counts = _props(l_max=l_max, opacity=opacity, seed=seed)
+    counts[8] = 100  # a count that is not a multiple of 32
+    props[np.arange(l_max)[None, :] >= counts[:, None]] = 0.0
+    return props, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", BL.LAB_VARIANTS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_lab_forward_kernel_matches_plain(cuda, case, variant):
+    props, counts = _lab_props(case, seed=2)
+    p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
+    ref = BL.lab_blend_reference(variant, p, c, TX_N, 16, *CFG)
+    before = BL.VARIANT_LAUNCHES[variant]
+    out = BL.lab_blend(variant, p, c, TX_N, 16, *CFG)
+    torch.cuda.synchronize()
+    assert BL.VARIANT_LAUNCHES[variant] == before + 1
+    for name, a, b, tol in zip(("color", "depth", "alpha"), out, ref, (3e-5, 3e-4, 3e-5)):
+        assert float((a - b).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_lab_moments_backward_matches_plain(cuda, case):
+    props, counts = _lab_props(case, seed=3)
+    p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
+    t_final, n_done = BL.blend_residuals(p, c, TX_N, 16, *CFG)
+    got = BL.moments_backward(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    plain = BL.moments_backward_reference(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    pr = p.clone().requires_grad_(True)
+    out = B.blend_tiles_reference(pr, c, TX_N, 16, *CFG)
+    sum((o * wi).sum() for o, wi in zip(out[:3], w)).backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    for ref in (plain, pr.grad):
+        assert bool(((got - ref).abs() <= 2e-3 * ref.abs() + 1e-5 * ref.abs().max()).all())

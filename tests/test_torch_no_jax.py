@@ -1,6 +1,8 @@
 """The port runs without JAX: in a fresh interpreter where `import jax` fails,
-every module of monogs_dev_tpu_torch imports and a tiny scene renders on the
-CPU; nothing of the JAX package gets imported along the way."""
+every module of monogs_dev_tpu_torch (the kernel lab's `ops/blend_lab.py`
+and `tools/kernel_lab.py` among them) and `bench_torch.py` import, a tiny
+scene renders on the CPU, and the lab's L1/L2 plain versions run; nothing of
+the JAX package or of `tools/kernel_lab.py` gets imported along the way."""
 
 import os
 import subprocess
@@ -33,7 +35,23 @@ out = render_tiled(params, torch.ones(n, dtype=torch.bool), torch.eye(4),
                    config=RasterConfig(max_per_tile=32, k_dup=8, tile_group=4))
 assert out.color.shape == (32, 32, 3) and bool(torch.isfinite(out.color).all())
 assert float(out.alpha.max()) > 0.1 and int(out.n_touched.sum()) > 0
-bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+import bench_torch
+from monogs_dev_tpu_torch.ops import blend_lab as BL
+assert "monogs_dev_tpu_torch.ops.blend_lab" in names
+assert "monogs_dev_tpu_torch.tools.kernel_lab" in names
+props = torch.zeros((2, 32, 10))
+props[:, :, :2] = 8.0
+props[:, :, 2] = props[:, :, 4] = 0.1
+props[:, :, 8] = 0.5
+counts = torch.tensor([32, 7], dtype=torch.int32)
+props[1, 7:] = 0.0
+color, depth, alpha = BL.lab_blend("lean", props, counts, 2, 16)
+t_final, n_done = BL.blend_residuals(props, counts, 2, 16)
+d = BL.moments_backward(props, t_final, n_done, torch.ones((2, 3, 256)), torch.ones((2, 256)),
+                        torch.ones((2, 256)), 2, 16)
+assert float(alpha.max()) > 0.9 and bool(torch.isfinite(d).all()) and float(d.abs().max()) > 0
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")
+       or m in ("tools", "tools.kernel_lab")]
 assert not bad, bad
 print("ok", len(names))
 """
