@@ -8,33 +8,41 @@
 3. kernels: K1, K3 and K2 at the bench shapes (VGA, 16x16 tiles, L = 512),
    on props from the port's projection, binning and gather of the bench
    scene at frame 0, each held against its plain torch version on the card
-   and timed with CUDA events;
+   and against the first version of the kernels (csrc/blend_v1.cu), and
+   timed: kernel-only (the C entry point into preallocated outputs, 20
+   launches back to back between two CUDA events, median of 21 such runs)
+   in turns with the first version, through the wrapper, and the plain
+   version;
 4. slice: `configs/synthetic/bench_vga.yaml` (RGB-D, Gauss-Newton tracking)
    through `SLAM`, the code path of `slam_torch.py`: frames 0..11 for the
    tracked frames/s, then on to the first keyframe after frame 0 and two
    frames past it, with the kernel launch counts of that run and the ATE;
-5. map kernels: K1, K3 and K2 again, on the map after the init mapping
-   and at the end of the slice, binned as the mapping loop bins them;
+5. map kernels: phase 3 again, on the map after the init mapping and at
+   the end of the slice, binned as the mapping loop bins them;
 6. tiers: the slice's final map compacted to a smaller tier and grown
    back, against the same steps on the CPU and against its full render;
 7. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
    kernel_lab.py`, every variant) on the lab scene at the lab's size, with
-   the launch counts of that run; then every L1 variant and L2 against its
-   plain version (L2 also against autograd through the plain blend), on the
-   lab scene and on the slice's map after init binned as mapping bins it,
-   each timed with CUDA events beside K1/K2 on the same props;
+   the launch counts of that run; phase 3 on the lab scene; then every L1
+   variant and L2 against its plain version (L2 also against autograd
+   through the plain blend), on the lab scene and on the slice's map after
+   init binned as mapping bins it, each timed with CUDA events;
 8. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
    `SLAM`, the code path of `bench_torch.py`: warm-up until the frontend and
    backend are initialized (by frame 162), 25 timed frames, and the checks
    (finite poses, a full window of keyframes, scale-corrected keyframe ATE
-   under 8 cm, K1/K2/K3 launched in the run).
+   under 8 cm, K1/K2/K3 launched in the run);
+   then up to 20 more frames under `torch.profiler` (each K kernel's device
+   ms per frame, the device's idle share), and phase 3 on the map at
+   initialization, binned as mapping bins it.
 
 The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
 its bound on an H100 (`bound_ms`: the larger of the bytes it must move over
-3.35 TB/s and its fp32 operations over 67 TFLOP/s, for this run's data).
-The last line is {"ok": true, "device": {...}}; any failed check exits
-non-zero before it.
+3.35 TB/s and the fp32 operations this run's data needs over 67 TFLOP/s);
+K1-K3 also with the first version's time (`ms_v1`), the wrapper's
+(`wrapper_ms`) and all of these on every prop set (`sets`). The last line
+is {"ok": true, "device": {...}}; any failed check exits non-zero before it.
 """
 
 from __future__ import annotations
@@ -57,8 +65,8 @@ AFTER_KF = 2  # frames tracked against the map that the keyframe grew
 TOL = {"color": 3e-5, "alpha": 3e-5, "depth": 3e-4}
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5  # atol: fp32 sums of ~256 pixel terms in another order
 # L2's absolute floor, relative to the largest gradient (as tests/test_torch_gpu.py
-# holds K2): on the lab scene (max |grad| ~500) float32 autograd and K2 themselves
-# miss the absolute 1e-5 floor against float64 autograd (PERF.md, Findings)
+# holds K2): on the lab scene (max |grad| ~500) float32 autograd itself misses
+# the absolute 1e-5 floor against float64 autograd (PERF.md, Findings)
 L2_ATOL_REL = 1e-5
 MONO_FRAME_CAP = 162  # bench.py:106: the last warm-up frame that leaves 25 to time
 MONO_ATE_BAR = 0.08  # tests/test_system.py:317
@@ -70,36 +78,51 @@ REPLACES = {
     "L1": "tools/kernel_lab.py:418",
     "L2": "tools/kernel_lab.py:479",
 }
+# kernel-only timing (kernel_ms): median over ROUNDS rounds of BURST launches,
+# each burst queued behind ~1 ms of device sleep
+ROUNDS, BURST, SLEEP_CYCLES = 21, 20, 2_000_000
+# monocular frames profiled after the timed window, fewer where the sequence
+# ends first: K2 runs only in keyframe mapping, so 5 frames often hold none
+PROFILE_FRAMES = 20
+# profiler kernel names of K1-K3
+PROFILE_NAMES = {"K1": "blend_fwd_kernel_v2<false>", "K3": "blend_fwd_kernel_v2<true>",
+                 "K2": "blend_bwd_kernel_v2"}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
-# fp32 ops per (entry, pixel) pair, counted from the sources (expf, log1pf
-# and a division as one op each; the gradients' pixel sums as one add per
-# component): K1 29, K3 30 (+ the touch test), L1 32 (trimat 34, rank-6 31),
-# K2 63, L2 61 (40 in the pixel pass, 11 moments FFMA)
+# fp32 ops per (entry, pixel) pair whose alpha the blend uses, counted from
+# the sources (expf, log1pf and a division as one op each, compares counted;
+# the gradients' pixel sums as one add per component): K1 29, K3 30 (+ the
+# touch test), L1 32 (trimat 34, rank-6 31), K2 63 (an alpha at its clamp
+# skips 22 of them), L2 61 (40 in the pixel pass, 11 moments FFMA)
 OPS_PER_PAIR = {"K1": 29, "K3": 30, "K2": 63, "L2": 61, "L1": 32, "L1/trimat": 34,
                 "L1/mxu": 31, "L1/lean": 31}
+# finding those pairs (csrc/blend.cu): an entry's reach box (`entry_reach`,
+# 27 ops), and the box against a warp's 32-pixel strip (`misses`, 6 ops)
+REACH_OPS, STRIP_OPS = 27, 6
 
 
-def bound(name, counts, n_done, p):
+def bound(name, counts, n_done, touch, p):
     """(bound_ms, bound_by) of kernel `name` on one call: bytes over HBM_BPS
     against ops over FP32_OPS. Bytes count the blended entries' props
-    (sum(counts) x 40 B) and the per-pixel tensors once; ops count the
-    (entry, pixel) pairs the data needs: sum(n_done) for K1-K3 and L2 (the
-    entries each pixel multiplies in before it saturates), sum(counts) x P
-    for L1 (no early exit)."""
+    (sum(counts) x 40 B) and the per-pixel tensors once. Ops count the work
+    this run's data needs, the same for every kernel of one function:
+    OPS_PER_PAIR for each pair of a pixel and an entry it multiplies in with
+    alpha >= alpha_min (sum(touch), exact: the plain version's touch counts
+    just those pairs); the other pairs have alpha 0 and add nothing. Finding
+    them costs REACH_OPS per entry up to the last one its tile multiplies in
+    and STRIP_OPS per (entry, 32-pixel strip) up to the strip's last."""
     entries = float(counts.sum())
     t = counts.shape[0]
     px_bytes = 4.0 * t * p
     if name.startswith("L1"):
         nbytes = 40 * entries + 4 * t + 5 * px_bytes
-        pairs = entries * p
     elif name in ("K2", "L2"):
         nbytes = 40 * entries + 7 * px_bytes + 40 * entries  # props in, d_props out
-        pairs = float(n_done.sum())
     else:  # K1, K3: color, depth, alpha, t_final, n_done (+ touch)
         nbytes = 40 * entries + 4 * t + 7 * px_bytes + (4 * entries if name == "K3" else 0)
-        pairs = float(n_done.sum())
-    ops = pairs * OPS_PER_PAIR.get(name, OPS_PER_PAIR[name[:2]])
+    strips = n_done.reshape(t, p // 32, 32).amax(dim=2)  # entries each strip multiplies in
+    ops = (float(touch.sum()) * OPS_PER_PAIR.get(name, OPS_PER_PAIR[name[:2]])
+           + REACH_OPS * float(strips.amax(dim=1).sum()) + STRIP_OPS * float(strips.sum()))
     t_bytes, t_ops = nbytes / HBM_BPS, ops / FP32_OPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -110,7 +133,8 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of `fn` over `reps` launches (CUDA events)."""
+    """Median milliseconds of `fn` over `reps` calls, each between two CUDA
+    events (for a wrapper: its host work included)."""
     import torch
 
     fn()
@@ -127,6 +151,34 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(launchers) -> dict:
+    """Kernel-only milliseconds per launch of each zero-argument launcher
+    (a C entry point into preallocated outputs, ops/blend.py): the median
+    over ROUNDS rounds of BURST back-to-back launches between two CUDA
+    events, the launchers in turns (in reverse order in every other round).
+    Each burst is queued behind a device sleep, so the host's launch cost
+    stays out of the window."""
+    import torch
+
+    for fn in launchers.values():
+        fn()
+    torch.cuda.synchronize()
+    names = list(launchers)
+    times = {n: [] for n in names}
+    for r in range(ROUNDS):
+        for n in names if r % 2 == 0 else names[::-1]:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            s.record()
+            for _ in range(BURST):
+                launchers[n]()
+            e.record()
+            e.synchronize()
+            times[n].append(s.elapsed_time(e) / BURST)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -135,28 +187,19 @@ def smi_line() -> str:
     return out[0]
 
 
-def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
-    """K1/K3/K2 against the plain blend on the props that the port's
-    projection, binning (tiles dilated by `dilate` px) and gather give for
-    `params` seen from `T_w2c`, each timed with CUDA events beside the
-    plain version."""
+def check_kernels(label, t_props, counts, tx_n, rcfg):
+    """K1/K3/K2 against the plain blend and against their first version
+    (t_final, n_done and touch counts equal bit for bit) on these per-tile
+    props, then each timed: kernel-only beside the first version, in turns
+    (`kernel_ms`), through its wrapper, and the plain version."""
     import torch
 
     from monogs_dev_tpu_torch.ops import blend as B
-    from monogs_dev_tpu_torch.ops.project import project_gaussians
-    from monogs_dev_tpu_torch.ops.rasterize import _tile_gather, build_binning, grid_dims, tile_wh
+    from monogs_dev_tpu_torch.ops.rasterize import tile_wh
 
-    dev = T_w2c.device
-    with torch.no_grad():
-        proj = project_gaussians(params, active, T_w2c, intr, 0)
-        binning = build_binning(proj, intr, rcfg, dilate=dilate)
-        props = torch.cat([proj.means2d, proj.conic, proj.color, proj.opacity[:, None],
-                           proj.depth[:, None]], dim=-1)
-        props_pad = torch.cat([props, props.new_zeros((1, 10))], dim=0)
-        t_props = _tile_gather(props_pad, binning.idx_table, binning.pos_table).contiguous()
-    counts = binning.counts
+    dev = t_props.device
     tw, th = tile_wh(rcfg)
-    tx_n, _, n_tiles = grid_dims(intr, tw, th)
+    n_tiles = t_props.shape[0]
     cargs = (tx_n, (tw, th), rcfg.alpha_clamp, rcfg.alpha_min, rcfg.transmittance_min)
     print(f"{label} kernels: props {tuple(t_props.shape)}, entries {int(counts.sum())}, "
           f"max per tile {int(counts.max())}, tiles over 256 entries "
@@ -166,6 +209,8 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
     with torch.no_grad():
         k1 = B.blend_forward_cuda(t_props, counts, *cargs, emit_touch=False)
         k3 = B.blend_forward_cuda(t_props, counts, *cargs, emit_touch=True)
+        launch_v1, v1 = B.forward_launcher(t_props, counts, *cargs, True, version=1)
+        launch_v1()
         ref = B.blend_tiles_reference(t_props, counts, *cargs, tile_group=rcfg.tile_group)
     torch.cuda.synchronize()
     for name, out in (("K1", k1), ("K3", k3)):
@@ -178,10 +223,19 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
     n_bad = int((k3[5] != ref[3]).sum())
     if n_bad:
         fail(f"{label} K3 touch counts differ from the plain version in {n_bad} entries")
+    for what, a, b in (("t_final", k1[3], v1[3]), ("n_done", k1[4], v1[4]),
+                       ("touch", k3[5], v1[5])):
+        if not torch.equal(a, b):
+            fail(f"{label} {what} differs from the first version's in {int((a != b).sum())} "
+                 "places")
     print(f"{label} K1 vs plain: {results['K1']['errs']} (tol {TOL}); "
           f"pixels past entry 256: {int((k1[4] > 256).sum())}", flush=True)
     print(f"{label} K3 vs plain: {results['K3']['errs']}, touch counts equal "
-          f"({int((ref[3] > 0).sum())} touched entries)", flush=True)
+          f"({int((ref[3] > 0).sum())} touched entries); t_final, n_done and touch equal to "
+          "the first version's", flush=True)
+    n_mult, n_touch = int(k1[4].sum()), int(ref[3].sum())
+    print(f"{label} pairs: {n_mult} (entry, pixel) pairs multiplied in, {n_touch} of them "
+          f"({100.0 * n_touch / max(n_mult, 1):.2f}%) with alpha >= alpha_min", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     p = tw * th
@@ -196,6 +250,8 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
     bwd_args = (t_props, t_final, n_done, g_color, g_depth, g_alpha, tx_n, (tw, th),
                 rcfg.alpha_clamp, rcfg.alpha_min)
     g_k = B.blend_backward_cuda(*bwd_args)
+    launch_v1, g_v1 = B.backward_launcher(*bwd_args, version=1)
+    launch_v1()
     torch.cuda.synchronize()
     err = (g_k - g_ref).abs()
     bad = err > GRAD_ATOL + GRAD_RTOL * g_ref.abs()
@@ -203,14 +259,22 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
         fail(f"{label} K2 props gradient: {int(bad.sum())} of {bad.numel()} outside rtol "
              f"{GRAD_RTOL} atol {GRAD_ATOL} (max |err| {float(err.max())})")
     results["K2"] = {"max_abs_err": float(err.max())}
+    err_v1 = (g_v1 - g_ref).abs()
     print(f"{label} K2 vs plain autograd: max |err| {float(err.max())} "
-          f"(max |grad| {float(g_ref.abs().max())}; rtol {GRAD_RTOL}, atol {GRAD_ATOL})",
-          flush=True)
+          f"(max |grad| {float(g_ref.abs().max())}; rtol {GRAD_RTOL}, atol {GRAD_ATOL}); first "
+          f"version vs plain autograd: max |err| {float(err_v1.max())}, outside the same "
+          f"tolerance {int((err_v1 > GRAD_ATOL + GRAD_RTOL * g_ref.abs()).sum())}", flush=True)
 
     with torch.no_grad():
-        results["K1"]["ms"] = cuda_ms(lambda: B.blend_forward_cuda(t_props, counts, *cargs, False))
-        results["K3"]["ms"] = cuda_ms(lambda: B.blend_forward_cuda(t_props, counts, *cargs, True))
-        results["K2"]["ms"] = cuda_ms(lambda: B.blend_backward_cuda(*bwd_args))
+        for name, touch in (("K1", False), ("K3", True)):
+            ms = kernel_ms({v: B.forward_launcher(t_props, counts, *cargs, touch, version=v)[0]
+                            for v in (2, 1)})
+            results[name]["ms"], results[name]["ms_v1"] = ms[2], ms[1]
+            results[name]["wrapper_ms"] = cuda_ms(
+                lambda touch=touch: B.blend_forward_cuda(t_props, counts, *cargs, touch))
+        ms = kernel_ms({v: B.backward_launcher(*bwd_args, version=v)[0] for v in (2, 1)})
+        results["K2"]["ms"], results["K2"]["ms_v1"] = ms[2], ms[1]
+        results["K2"]["wrapper_ms"] = cuda_ms(lambda: B.blend_backward_cuda(*bwd_args))
         plain_fwd = cuda_ms(lambda: B.blend_tiles_reference(
             t_props, counts, *cargs, tile_group=rcfg.tile_group), reps=5)
     results["K1"]["plain_ms"] = plain_fwd
@@ -219,10 +283,17 @@ def check_kernels(label, params, active, T_w2c, intr, rcfg, dilate=0.0):
         lambda: torch.autograd.grad(plain_loss, pr, retain_graph=True), reps=5)
     for name in ("K1", "K3", "K2"):
         r = results[name]
-        r["bound_ms"], r["bound_by"] = bound(name, counts, k1[4], p)
-        print(f"{label} {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        r["bound_ms"], r["bound_by"] = bound(name, counts, k1[4], ref[3], p)
+        print(f"{label} {name}: {r['ms']:.4f} ms kernel-only (first version {r['ms_v1']:.4f} "
+              f"ms, {r['ms_v1'] / r['ms']:.2f}x), wrapper {r['wrapper_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
     return results
+
+
+def set_times(res) -> dict:
+    """The numbers of one prop set for the `kernels` line."""
+    return {k: res[k] for k in ("ms", "ms_v1", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
 
 
 def scene_kernel_phase(config, dev):
@@ -231,36 +302,41 @@ def scene_kernel_phase(config, dev):
 
     from monogs_dev_tpu_torch.core.system import raster_config_from
     from monogs_dev_tpu_torch.data.synthetic import SyntheticDataset
+    from monogs_dev_tpu_torch.ops.rasterize import grid_dims, tile_wh
+    from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
 
     ds = SyntheticDataset(config, dev)
     T0 = torch.as_tensor(ds.poses[0], dtype=torch.float32, device=dev)
-    return check_kernels("scene", ds.scene_params, ds.scene_active, T0, ds.intr,
-                         raster_config_from(config))
+    rcfg = raster_config_from(config)
+    t_props, counts = tile_props(ds.scene_params, ds.scene_active, T0, ds.intr, rcfg)
+    return check_kernels("frame 0", t_props, counts, grid_dims(ds.intr, *tile_wh(rcfg))[0], rcfg)
 
 
-def snapshot_map(slam, kf):
+def snapshot_map(slam, kf, name):
     """A copy of the map and of keyframe `kf`'s pose, for `map_kernel_phase`."""
     import torch
 
     engine = slam.engine
-    return (f"map(kf {kf}, frame {slam.frontend.cur_frame_idx})",
+    return (f"{name} (kf {kf}, frame {slam.frontend.cur_frame_idx})",
             engine.gmap.params.map(lambda x: x.detach().clone()),
             engine.gmap.aux.active.clone(),
             torch.as_tensor(engine.viewpoints[kf].T_w2c, dtype=torch.float32,
                             device=slam.device))
 
 
-def map_kernel_phase(slam, snapshots):
-    """The kernels on the slice's mapped maps, binned as the mapping loop
-    bins them (tiles dilated by `mapping_rebin_dilation`): the density the
-    mapping renders blend. Returns each kernel's largest error."""
-    worst = {}
+def map_kernel_phase(snapshots, intr, rcfg, dilate):
+    """The kernels on mapped maps, binned as the mapping loop bins them
+    (tiles dilated by `mapping_rebin_dilation`): the density the mapping
+    renders blend. Returns {label: check_kernels' results}."""
+    from monogs_dev_tpu_torch.ops.rasterize import grid_dims, tile_wh
+    from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
+
+    out = {}
     for label, params, active, T in snapshots:
-        res = check_kernels(label, params, active, T, slam.intr, slam.raster_cfg,
-                            dilate=slam.step_cfg.mapping_rebin_dilation)
-        for name in ("K1", "K2", "K3"):
-            worst[name] = max(worst.get(name, 0.0), res[name]["max_abs_err"])
-    return worst
+        t_props, counts = tile_props(params, active, T, intr, rcfg, dilate=dilate)
+        out[label] = check_kernels(label, t_props, counts, grid_dims(intr, *tile_wh(rcfg))[0],
+                                   rcfg)
+    return out
 
 
 def _map_fields(gmap):
@@ -332,6 +408,9 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
     cfg = (rcfg.alpha_clamp, rcfg.alpha_min, rcfg.transmittance_min)
     res = {}
     with torch.no_grad():
+        t_final, n_done = BL.blend_residuals(t_props, counts, tx_n, tile, *cfg)
+        touch = B.blend_tiles_reference(t_props, counts, tx_n, tile, *cfg,
+                                        tile_group=rcfg.tile_group)[3]
         for v in BL.LAB_VARIANTS:
             out = BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg)
             ref = BL.lab_blend_reference(v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group)
@@ -345,12 +424,11 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
             r["ms"] = cuda_ms(lambda v=v: BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg))
             r["plain_ms"] = cuda_ms(lambda v=v: BL.lab_blend_reference(
                 v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group), reps=3)
-            r["bound_ms"], r["bound_by"] = bound(f"L1/{v}", counts, None, p)
+            r["bound_ms"], r["bound_by"] = bound(f"L1/{v}", counts, n_done, touch, p)
             print(f"{label} L1/{v} vs plain: {errs}; {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
                   flush=True)
 
-        t_final, n_done = BL.blend_residuals(t_props, counts, tx_n, tile, *cfg)
         gen = torch.Generator(device=t_props.device).manual_seed(1)
         cots = (torch.randn((t_props.shape[0], 3, p), generator=gen, device=t_props.device),
                 0.1 * torch.randn((t_props.shape[0], p), generator=gen, device=t_props.device),
@@ -403,7 +481,7 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
         r["ms"] = cuda_ms(lambda: BL.moments_backward_cuda(*args))
         r["plain_ms"] = cuda_ms(lambda: BL.moments_backward_reference(*args, rcfg.tile_group),
                                 reps=3)
-    r["bound_ms"], r["bound_by"] = bound("L2", counts, n_done, p)
+    r["bound_ms"], r["bound_by"] = bound("L2", counts, n_done, touch, p)
     print(f"{label} L2: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return res
@@ -411,8 +489,9 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
 
 def lab_phase(dev, snapshot, intr, rcfg, dilate):
     """The lab's entry point on the lab scene (the launch counts of that
-    run), then L1/L2 against their plain versions on the lab scene and on
-    the slice's post-init map."""
+    run), then K1-K3 (`check_kernels`) and L1/L2 against their plain
+    versions on the lab scene, and L1/L2 on the slice's post-init map.
+    Returns (L1/L2 results, K1-K3 results on the lab scene)."""
     import torch
 
     from monogs_dev_tpu_torch.data.synthetic import load_lab_scene
@@ -439,6 +518,7 @@ def lab_phase(dev, snapshot, intr, rcfg, dilate):
     tx_n = -(-KL.LAB_INTR.width // KL.LAB_RASTER.tile)
     print(f"lab scene: props {tuple(t_props.shape)}, entries {int(counts.sum())}, "
           f"max per tile {int(counts.max())}", flush=True)
+    kres = check_kernels("lab", t_props, counts, tx_n, KL.LAB_RASTER)
     res = check_lab("lab", t_props, counts, tx_n, KL.LAB_RASTER)
     label, m_params, m_active, T = snapshot
     m_props, m_counts = KL.tile_props(m_params, m_active, T, intr, rcfg, dilate=dilate)
@@ -449,19 +529,63 @@ def lab_phase(dev, snapshot, intr, rcfg, dilate):
     for name, r in res.items():
         r["max_abs_err"] = max(r["max_abs_err"], res_map[name]["max_abs_err"])
         r["launches"] = launches[name]
-    return res
+    return res, kres
+
+
+def profile_frames(slam, start: int, n: int, frame_ms: float):
+    """`torch.profiler` over frames [start, start + n) of the run, after its
+    timed window: each K kernel's device ms per frame, the device's summed
+    kernel time per frame and its idle share, of the profiled wall time (the
+    profiler slows the host) and of `frame_ms`, the unprofiled frame time
+    of the timed window. None where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slam.frontend.run(max_frames=start + n)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.time() - t0) / n
+    # kernel rows only: the aten rows carry the same device time again
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    if busy_ms <= 0.0:
+        print("profile: the trace holds no device time (not measured)", flush=True)
+        return None
+    out = {
+        "frames": [start, start + n],
+        "kernel_ms_per_frame": {k: sum(e.self_device_time_total for e in rows if pat in e.key)
+                                / 1e3 / n for k, pat in PROFILE_NAMES.items()},
+        "device_ms_per_frame": busy_ms,
+        "profiled_wall_ms_per_frame": wall_ms,
+        "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+        "timed_window_ms_per_frame": frame_ms,
+        "idle_share_of_timed_frame": 1.0 - busy_ms / frame_ms,
+        "top": [(e.key[:80], e.self_device_time_total / 1e3 / n)
+                for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]],
+    }
+    print("mono profile: " + json.dumps(out), flush=True)
+    return out
 
 
 def mono_phase(config, dev):
     """bench_torch.py's run: bench_vga forced monocular, warm-up until both
-    halves are initialized (by frame MONO_FRAME_CAP), 25 timed frames."""
+    halves are initialized (by frame MONO_FRAME_CAP), 25 timed frames; a
+    copy of the map at initialization (for `map_kernel_phase`); then
+    PROFILE_FRAMES more frames under the profiler."""
     import torch
 
     import bench_torch
     from monogs_dev_tpu_torch.ops import blend as B
 
+    snapshot = []
+
+    def at_init(slam):
+        snapshot.append(snapshot_map(slam, slam.frontend.kf_indices[-1], "mono init map"))
+
     B.reset_launch_counts()
-    slam, info = bench_torch.run_bench(config, dev)
+    slam, info = bench_torch.run_bench(config, dev, at_init=at_init)
     torch.cuda.synchronize()
     launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
     slam.stop()
@@ -484,7 +608,10 @@ def mono_phase(config, dev):
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched in the monocular run")
-    return info
+    start = info["warm_frames"] + bench_torch.N_MEAS
+    n = min(PROFILE_FRAMES, len(slam.dataset) - start)
+    info["profile"] = profile_frames(slam, start, n, 1e3 / info["fps"]) if n > 0 else None
+    return info, snapshot[0], slam.intr, slam.raster_cfg, slam.step_cfg.mapping_rebin_dilation
 
 
 def slice_phase(config, dev):
@@ -504,7 +631,7 @@ def slice_phase(config, dev):
     B.reset_launch_counts()
     t0 = time.time()
     slam.run(max_frames=1)  # frame 0 and, as the run ends, its init mapping
-    snapshots = [snapshot_map(slam, 0)]
+    snapshots = [snapshot_map(slam, 0, "RGB-D post-init map")]
     slam.run(max_frames=2)  # the first tracked frame
     torch.cuda.synchronize()
     t1 = time.time()
@@ -524,7 +651,7 @@ def slice_phase(config, dev):
     t3 = time.time()
     launches = dict(B.LAUNCHES)
     slam.stop()
-    snapshots.append(snapshot_map(slam, fe.kf_indices[-1]))
+    snapshots.append(snapshot_map(slam, fe.kf_indices[-1], "RGB-D end map"))
     ate = slam.keyframe_ate()
     frames = sorted(fe.cameras)
     ate_all = ate_rmse([fe.cameras[i].T_est for i in frames], [fe.cameras[i].T_gt for i in frames])
@@ -576,14 +703,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(CONFIG)
-    kres = scene_kernel_phase(config, dev)
+    sets = {"frame 0": scene_kernel_phase(config, dev)}
     slam, _, snapshots = slice_phase(config, dev)
-    worst = map_kernel_phase(slam, snapshots)
+    sets.update(map_kernel_phase(snapshots, slam.intr, slam.raster_cfg,
+                                 slam.step_cfg.mapping_rebin_dilation))
     tier_phase(slam)
-    lres = lab_phase(dev, snapshots[0], slam.intr, slam.raster_cfg,
-                     slam.step_cfg.mapping_rebin_dilation)
+    lres, sets["lab"] = lab_phase(dev, snapshots[0], slam.intr, slam.raster_cfg,
+                                  slam.step_cfg.mapping_rebin_dilation)
     del slam
-    mono = mono_phase(load_config(CONFIG), dev)
+    mono, mono_snap, intr, rcfg, dilate = mono_phase(load_config(CONFIG), dev)
+    sets.update(map_kernel_phase([mono_snap], intr, rcfg, dilate))
+    profiled = mono["profile"]
 
     kernels = [
         {
@@ -592,12 +722,12 @@ def main() -> int:
             "source": SOURCES["K"],
             "replaces": REPLACES[name],
             "launches": mono["launches"][name],
-            "max_abs_err": max(kres[name]["max_abs_err"], worst[name]),
-            "ms": kres[name]["ms"],
-            "plain_ms": kres[name]["plain_ms"],
-            "bound_ms": kres[name]["bound_ms"],
-            "bound_by": kres[name]["bound_by"],
+            "max_abs_err": max(res[name]["max_abs_err"] for res in sets.values()),
+            **set_times(sets["frame 0"][name]),
             "library_ms": None,  # no single PyTorch call computes the blend
+            "sets": {label: set_times(res[name]) for label, res in sets.items()},
+            "mono_device_ms_per_frame": (profiled["kernel_ms_per_frame"][name]
+                                         if profiled else None),
         }
         for name in ("K1", "K2", "K3")
     ] + [
@@ -616,10 +746,16 @@ def main() -> int:
         }
         for name, r in lres.items()
     ]
-    # K1-K3: launches in the monocular run (phase 8), ms/plain_ms/bound_ms on
-    # the bench scene's props (phase 3), max_abs_err over phases 3 and 5;
-    # L1/L2: launches in the lab's run, ms/plain_ms/bound_ms on the lab
-    # scene's props, max_abs_err over the lab scene and the post-init map
+    # K1-K3: launches in the monocular run (phase 8); ms (kernel-only), ms_v1
+    # (the first version's, in turns with it), wrapper_ms, plain_ms and
+    # bound_ms on the bench scene's frame-0 props (phase 3), and the same for
+    # every prop set under "sets"; max_abs_err over all sets. L1/L2: launches
+    # in the lab's run, ms/plain_ms/bound_ms on the lab scene's props (ms
+    # through the wrapper), max_abs_err over the lab scene and the post-init map
+    for label, res in sets.items():
+        print(f"{label}: kernel-only speed-up over the first version: "
+              + ", ".join(f"{k} {res[k]['ms_v1'] / res[k]['ms']:.2f}x" for k in ("K1", "K3", "K2")),
+              flush=True)
     print(f"wall time: {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

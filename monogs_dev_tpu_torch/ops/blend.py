@@ -8,9 +8,12 @@ Counterpart of `monogs_dev_tpu/ops/blend_pallas.py`. Three kernels live in
   K2  back-to-front replay backward (replaces `_blend_bwd_kernel`)
 
 They are compiled with `nvcc` for `sm_90a` at first use into `build/`,
-together with the kernel lab's `csrc/blend_lab.cu` (ops/blend_lab.py), into
-one library called through `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on the
-device of `props`: a CUDA tensor goes to the kernels (a build or launch
+together with the first version of the same kernels (`csrc/blend_v1.cu`,
+kept as a yardstick: `forward_launcher`/`backward_launcher` with
+`version=1`, which count no launch; nothing of the system calls them) and
+the kernel lab's `csrc/blend_lab.cu` (ops/blend_lab.py), into one library
+called through `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on
+the device of `props`: a CUDA tensor goes to the kernels (a build or launch
 failure raises), a CPU tensor goes to `blend_tiles_reference`, the plain
 torch port of the JAX package's `_blend_group` (ops/rasterize.py), whose
 gradient is torch autograd through it.
@@ -26,20 +29,24 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 D_IN = 10
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", name) for name in ("blend.cu", "blend_lab.cu")]
 _BUILD_DIR = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + [
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    # alpha must round exactly as in the plain version (touch counts)
-    "-fmad=false",
-]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# each source with its own flags: blend.cu rounds alpha by hand and lets the
+# rest contract to FMA; the first version and the lab's variants are held to
+# their plain versions as compiled with no contraction at all
+SOURCE_FLAGS: Dict[str, List[str]] = {
+    "blend.cu": [],
+    "blend_v1.cu": ["-fmad=false"],
+    "blend_lab.cu": ["-fmad=false"],
+}
+SOURCES = [os.path.join(_PKG, "csrc", name) for name in SOURCE_FLAGS]
 
 # launches per kernel; each wrapper adds one where it launches its kernel
 # (L1 and L2 are the kernel lab's, ops/blend_lab.py)
@@ -64,28 +71,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the blend kernels need the CUDA toolkit")
 
 
-def build(verbose: bool = False) -> Tuple[str, float]:
-    """Compile `csrc/blend.cu` and `csrc/blend_lab.cu` into one library
-    (named by a hash of both sources and the flags) and return (library
-    path, seconds spent compiling; 0.0 when already built). Each source gets
-    its own `nvcc`, all started together; one more links them."""
+def compile_commands(nvcc: str, obj_dir: str, verbose: bool = False) -> List[List[str]]:
+    """One `nvcc -c` command line per source, with its own flags, writing
+    `<obj_dir>/<source>.o`."""
+    extra = ["-Xptxas", "-v"] if verbose else []
+    return [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS[os.path.basename(src)], *extra, "-c", "-o",
+             os.path.join(obj_dir, os.path.basename(src) + ".o"), src] for src in SOURCES]
+
+
+def library_path() -> str:
+    """`build/libblend_<key>.so`, the key a hash of the flags and sources."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for path in SOURCES:
+        h.update(" ".join(SOURCE_FLAGS[os.path.basename(path)]).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    key = h.hexdigest()[:12]
-    out = os.path.join(_BUILD_DIR, f"libblend_{key}.so")
+    return os.path.join(_BUILD_DIR, f"libblend_{h.hexdigest()[:12]}.so")
+
+
+def build(verbose: bool = False) -> Tuple[str, float]:
+    """Compile the sources into one library (`library_path`) and return
+    (library path, seconds spent compiling; 0.0 when already built). Each
+    source gets its own `nvcc`, all started together; one more links them."""
+    out = library_path()
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(_BUILD_DIR, exist_ok=True)
     t0 = time.time()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp_dir:
-        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-        objs = [os.path.join(tmp_dir, os.path.basename(src) + ".o") for src in SOURCES]
-        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src], stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(SOURCES, objs)]
+        cmds = compile_commands(nvcc, tmp_dir, verbose)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
         logs = [(src, proc.communicate()[1], proc.returncode) for src, proc in zip(SOURCES, procs)]
         failed = [f"{src}:\n{err}" for src, err, rc in logs if rc != 0]
         if failed:
@@ -93,6 +110,7 @@ def build(verbose: bool = False) -> Tuple[str, float]:
         if verbose:
             for _, err, _ in logs:
                 print(err, end="")
+        objs = [cmd[-2] for cmd in cmds]
         lib = os.path.join(tmp_dir, "lib.so")
         proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
@@ -102,26 +120,31 @@ def build(verbose: bool = False) -> Tuple[str, float]:
     return out, time.time() - t0
 
 
+# the C entry points (forward, backward) of each version of K1-K3
+_ENTRIES = {2: ("blend_fwd", "blend_bwd"), 1: ("blend_fwd_v1", "blend_bwd_v1")}
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            lib.blend_fwd.argtypes = [
-                _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-                _c_float, _c_float, _c_float,
-                _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                _c_void_p, _c_void_p,
-            ]
-            lib.blend_fwd.restype = _c_int
-            lib.blend_bwd.argtypes = [
-                _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-                _c_float, _c_float,
-                _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                _c_void_p, _c_void_p,
-            ]
-            lib.blend_bwd.restype = _c_int
+            for fwd, bwd in _ENTRIES.values():
+                getattr(lib, fwd).argtypes = [
+                    _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                    _c_float, _c_float, _c_float,
+                    _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                    _c_void_p, _c_void_p,
+                ]
+                getattr(lib, fwd).restype = _c_int
+                getattr(lib, bwd).argtypes = [
+                    _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                    _c_float, _c_float,
+                    _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                    _c_void_p, _c_void_p,
+                ]
+                getattr(lib, bwd).restype = _c_int
             lib.lab_blend_fwd.argtypes = [
                 _c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
                 _c_float, _c_float, _c_float, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
@@ -156,19 +179,31 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def blend_forward_cuda(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
-                       emit_touch: bool):
-    """Launch K1 (or K3 with `emit_touch`). Returns color (T,3,P), depth (T,P),
-    alpha (T,P), t_final (T,P), n_done (T,P) int32 and touch (T,L) int32 or
-    None."""
+def _tile_pixels(tile) -> Tuple[int, int, int]:
+    """(tile_w, tile_h, pixels) of a tile the kernels take: one thread per
+    pixel, whole warps, one block."""
     tw, th = _tile_wh(tile)
     p = tw * th
     if p % 32 or p > 1024:
         raise ValueError(f"tile of {p} pixels: need a multiple of 32 up to 1024")
+    return tw, th, p
+
+
+def forward_launcher(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
+                     emit_touch: bool, version: int = 2) -> Tuple[Callable[[], None], tuple]:
+    """Check the inputs of K1 (K3 with `emit_touch`) and allocate its
+    outputs: color (T,3,P), depth (T,P), alpha (T,P), t_final (T,P), n_done
+    (T,P) int32 and touch (T,L) int32 or None. Returns (launch, outputs):
+    `launch()` runs the kernel of `version` (2, or the first version 1) into
+    those outputs through its C entry point on the current stream, and does
+    no other host work than the call, so that repeated launches time the
+    kernel alone. It counts no launch."""
+    tw, th, p = _tile_pixels(tile)
     t, l, d = props.shape
     _check(props, "props", torch.float32, (t, l, D_IN))
     _check(counts, "counts", torch.int32, (t,))
-    lib = _load()
+    name = _ENTRIES[version][0]
+    fn = getattr(_load(), name)
     dev = props.device
     color = torch.empty((t, 3, p), dtype=torch.float32, device=dev)
     depth = torch.empty((t, p), dtype=torch.float32, device=dev)
@@ -176,24 +211,26 @@ def blend_forward_cuda(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
     t_final = torch.empty((t, p), dtype=torch.float32, device=dev)
     n_done = torch.empty((t, p), dtype=torch.int32, device=dev)
     touch = torch.zeros((t, l), dtype=torch.int32, device=dev) if emit_touch else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.blend_fwd(
-        props.data_ptr(), counts.data_ptr(), t, l, int(tx_n), tw, th,
-        float(alpha_clamp), float(alpha_min), float(t_min),
-        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
-        t_final.data_ptr(), n_done.data_ptr(),
-        touch.data_ptr() if emit_touch else None, stream,
-    )
-    _raise_on(err, "blend_fwd")
-    LAUNCHES["K3" if emit_touch else "K1"] += 1
-    return color, depth, alpha, t_final, n_done, touch
+    args = (props.data_ptr(), counts.data_ptr(), t, l, int(tx_n), tw, th,
+            float(alpha_clamp), float(alpha_min), float(t_min),
+            color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
+            t_final.data_ptr(), n_done.data_ptr(),
+            touch.data_ptr() if emit_touch else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch() -> None:
+        _raise_on(fn(*args), name)
+
+    return launch, (color, depth, alpha, t_final, n_done, touch)
 
 
-def blend_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
-                        tile, alpha_clamp, alpha_min):
-    """Launch K2: d_props (T, L, 10) from the forward's residuals."""
-    tw, th = _tile_wh(tile)
-    p = tw * th
+def backward_launcher(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n, tile,
+                      alpha_clamp, alpha_min,
+                      version: int = 2) -> Tuple[Callable[[], None], torch.Tensor]:
+    """K2's counterpart of `forward_launcher`: checks the inputs, allocates
+    d_props (T, L, 10) (zero: the kernel writes the entries some pixel
+    multiplied in) and returns (launch, d_props)."""
+    tw, th, p = _tile_pixels(tile)
     t, l, _ = props.shape
     _check(props, "props", torch.float32, (t, l, D_IN))
     _check(t_final, "t_final", torch.float32, (t, p))
@@ -201,16 +238,38 @@ def blend_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
     _check(g_color, "g_color", torch.float32, (t, 3, p))
     _check(g_depth, "g_depth", torch.float32, (t, p))
     _check(g_alpha, "g_alpha", torch.float32, (t, p))
-    lib = _load()
+    name = _ENTRIES[version][1]
+    fn = getattr(_load(), name)
     d_props = torch.zeros((t, l, D_IN), dtype=torch.float32, device=props.device)
-    stream = torch.cuda.current_stream(props.device).cuda_stream
-    err = lib.blend_bwd(
-        props.data_ptr(), t, l, int(tx_n), tw, th,
-        float(alpha_clamp), float(alpha_min),
-        t_final.data_ptr(), n_done.data_ptr(), g_color.data_ptr(),
-        g_depth.data_ptr(), g_alpha.data_ptr(), d_props.data_ptr(), stream,
-    )
-    _raise_on(err, "blend_bwd")
+    args = (props.data_ptr(), t, l, int(tx_n), tw, th, float(alpha_clamp), float(alpha_min),
+            t_final.data_ptr(), n_done.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
+            g_alpha.data_ptr(), d_props.data_ptr(),
+            torch.cuda.current_stream(props.device).cuda_stream)
+
+    def launch() -> None:
+        _raise_on(fn(*args), name)
+
+    return launch, d_props
+
+
+def blend_forward_cuda(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
+                       emit_touch: bool):
+    """Launch K1 (or K3 with `emit_touch`). Returns color (T,3,P), depth (T,P),
+    alpha (T,P), t_final (T,P), n_done (T,P) int32 and touch (T,L) int32 or
+    None."""
+    launch, out = forward_launcher(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
+                                   emit_touch)
+    launch()
+    LAUNCHES["K3" if emit_touch else "K1"] += 1
+    return out
+
+
+def blend_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
+                        tile, alpha_clamp, alpha_min):
+    """Launch K2: d_props (T, L, 10) from the forward's residuals."""
+    launch, d_props = backward_launcher(props, t_final, n_done, g_color, g_depth, g_alpha,
+                                        tx_n, tile, alpha_clamp, alpha_min)
+    launch()
     LAUNCHES["K2"] += 1
     return d_props
 

@@ -8,6 +8,9 @@ another order, depth ~5 m); touch counts exact; props gradients rtol 2e-3
 (rtol 5e-3 for the deep stack, whose transmittance chain is longer), with
 an absolute floor of 1e-5 x the largest gradient."""
 
+import ast
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,3 +196,84 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     before = dict(B.LAUNCHES)
     B.blend_tiles(p, c, TX_N, TILE)  # CPU tensors take the plain version
     assert B.LAUNCHES == before
+
+
+def test_each_source_builds_with_its_own_flags():
+    """blend.cu (version 2) contracts multiply-adds: it rounds alpha by hand.
+    The first version and the lab keep -fmad=false. Every source gets one
+    `nvcc -c` into its own object, and the library's name hashes the flags."""
+    cmds = B.compile_commands("nvcc", "/build", verbose=True)
+    by_src = {cmd[-1].rsplit("/", 1)[-1]: cmd for cmd in cmds}
+    assert set(by_src) == {"blend.cu", "blend_v1.cu", "blend_lab.cu"}
+    assert "-fmad=false" not in by_src["blend.cu"]
+    assert "-fmad=false" in by_src["blend_v1.cu"] and "-fmad=false" in by_src["blend_lab.cu"]
+    for name, cmd in by_src.items():
+        assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[-4:-1] == ["-c", "-o", f"/build/{name}.o"] and "-v" in cmd
+    assert "-v" not in B.compile_commands("nvcc", "/build")[0]
+    key = B.library_path()
+    flags = dict(B.SOURCE_FLAGS)
+    try:
+        B.SOURCE_FLAGS["blend.cu"] = ["-fmad=false"]
+        assert B.library_path() != key
+    finally:
+        B.SOURCE_FLAGS.clear()
+        B.SOURCE_FLAGS.update(flags)
+    assert B.library_path() == key
+
+
+@pytest.mark.parametrize("tile", [(16, 15), (8, 3), (16, 128)])
+def test_cuda_wrappers_refuse_tiles_the_kernels_do_not_take(tile):
+    """One thread per pixel, whole warps, one block: a multiple of 32 pixels
+    up to 1024. Checked before the device, so the CPU sees it."""
+    props, counts = make_props(n_tiles=2)
+    p, c = torch.tensor(props), torch.tensor(counts)
+    with pytest.raises(ValueError, match="tile of"):
+        B.blend_forward_cuda(p, c, TX_N, tile, *CFG, emit_touch=False)
+    z = torch.zeros((2, tile[0] * tile[1]))
+    with pytest.raises(ValueError, match="tile of"):
+        B.backward_launcher(p, z, z.int(), torch.zeros((2, 3, z.shape[1])), z, z, TX_N, tile,
+                            0.99, 1.0 / 255.0)
+
+
+def test_launchers_refuse_cpu_tensors():
+    props, counts = make_props(n_tiles=2)
+    p, c = torch.tensor(props), torch.tensor(counts)
+    before = dict(B.LAUNCHES)
+    z = torch.zeros((2, 256))
+    for version in (2, 1):
+        with pytest.raises(ValueError, match="CUDA"):
+            B.forward_launcher(p, c, TX_N, TILE, *CFG, emit_touch=True, version=version)
+        with pytest.raises(ValueError, match="CUDA"):
+            B.backward_launcher(p, z, z.int(), torch.zeros((2, 3, 256)), z, z, TX_N, TILE,
+                                0.99, 1.0 / 255.0, version=version)
+    assert dict(B.LAUNCHES) == before
+
+
+def test_no_system_module_reaches_the_first_version():
+    """Version 1 of K1-K3 (csrc/blend_v1.cu) is reached only through
+    `forward_launcher`/`backward_launcher` with `version=1`. No module of the
+    port and no entry point calls the launchers or names a version-1 entry
+    point, except ops/blend.py, whose counted wrappers call them with the
+    default version 2: no SLAM run can launch version 1."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "monogs_dev_tpu_torch")
+    blend_py = os.path.join(pkg, "ops", "blend.py")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    files += [os.path.join(root, f) for f in ("slam_torch.py", "bench_torch.py")]
+    n_args = {"forward_launcher": 8, "backward_launcher": 10}  # every argument but `version`
+    calls = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                func = node.func
+                name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", None)
+                if name in n_args:
+                    assert path == blend_py, f"{path}:{node.lineno} calls {name}"
+                    assert not node.keywords and len(node.args) == n_args[name], node.lineno
+                    calls.append(name)
+            elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert path == blend_py or "_v1" not in node.value, f"{path}:{node.lineno}"
+    assert sorted(calls) == ["backward_launcher", "forward_launcher"]

@@ -1,5 +1,6 @@
 """The CUDA blend kernels (K1-K3) and the kernel lab's (L1 variants, L2)
-against their plain torch versions, on a card.
+against their plain torch versions, on a card; K1-K3 also against their
+first version (csrc/blend_v1.cu), which they must reproduce.
 
 Every test here is marked `gpu` and skips itself without a CUDA device. The
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -9,14 +10,21 @@ torch is installed (tests/conftest.py imports JAX; skip it there):
 
 Tolerances as in tests/test_torch_blend.py: colour and alpha 3e-5, depth
 3e-4, touch counts exact, props gradients rtol 2e-3 with an absolute floor
-of 1e-5 x the largest gradient.
+of 1e-5 x the largest gradient. Both versions round alpha and the
+transmittance as the plain version does, so touch counts, n_done and
+t_final of the two versions are equal bit for bit.
 
-The kernels stage entries in batches of 256, so the cases with 512 entries
-per tile (the bench's `max_per_tile`) run the multi-batch path: staging of
-the second batch, the tile's early exit at a batch boundary, touch writes
-past entry 256 and the backward's replay across batches. The opacity ranges
-make stacks that stay transparent through all 512 entries, that saturate
-inside the first batch (alpha at its 0.99 clamp), and a mix of both."""
+The kernels stage entries in batches (version 1: 256; version 2: 128 in
+the forward, 64 in the backward), so the cases with 512 entries per tile
+(the bench's `max_per_tile`) run the multi-batch path: staging of later
+batches, the tile's early exit at a batch boundary, touch writes past the
+first batch and the backward's replay across batches; `l512_ragged` sets
+counts that are no multiple of a batch. The opacity ranges make stacks that
+stay transparent through all 512 entries, that saturate inside the first
+batch (alpha at its 0.99 clamp), and a mix of both; `l512_sparse` scatters
+footprints of about a pixel, so that most warps miss most entries (the
+per-warp skips); `l128_edge` mixes in opacities under alpha_min,
+conics near singular and footprints wider than a tile."""
 
 import numpy as np
 import pytest
@@ -42,21 +50,27 @@ def cuda():
     return torch.device("cuda")
 
 
-# (entries per tile, opacity range)
+# (entries per tile, opacity range, footprint std in pixels)
 CASES = {
-    "l128": (128, (0.05, 0.999)),
-    "l512_mixed": (512, (0.05, 0.999)),
-    "l512_low_opacity": (512, (0.003, 0.03)),
-    "l512_saturated": (512, (0.9, 0.999)),
+    "l128": (128, (0.05, 0.999), (1.0, 8.0)),
+    "l512_mixed": (512, (0.05, 0.999), (1.0, 8.0)),
+    "l512_low_opacity": (512, (0.003, 0.03), (1.0, 8.0)),
+    "l512_saturated": (512, (0.9, 0.999), (1.0, 8.0)),
+    "l512_sparse": (512, (0.05, 0.999), (0.3, 1.2)),
+    "l512_ragged": (512, (0.003, 0.3), (1.0, 8.0)),
+    "l128_edge": (128, (0.05, 0.999), (1.0, 8.0)),
 }
+LAB_CASES = ("l128", "l512_mixed", "l512_low_opacity", "l512_saturated")
+# counts of l512_ragged's tiles 8..15: no multiple of 64, 128 or 256
+RAGGED_COUNTS = (511, 449, 385, 321, 257, 193, 129, 1)
 
 
-def _props(n_tiles=64, l_max=128, opacity=(0.05, 0.999), seed=0):
+def _props(n_tiles=64, l_max=128, opacity=(0.05, 0.999), scale=(1.0, 8.0), seed=0):
     rng = np.random.default_rng(seed)
     tid = np.arange(n_tiles)
     mu = np.stack([(tid % TX_N)[:, None] * 16 + rng.uniform(-16, 32, (n_tiles, l_max)),
                    (tid // TX_N)[:, None] * 16 + rng.uniform(-16, 32, (n_tiles, l_max))], -1)
-    s = rng.uniform(1.0, 8.0, (n_tiles, l_max, 2))
+    s = rng.uniform(*scale, (n_tiles, l_max, 2))
     conic = np.stack([1 / s[..., 0] ** 2, rng.uniform(-0.01, 0.01, (n_tiles, l_max)),
                       1 / s[..., 1] ** 2], -1)
     rest = np.concatenate([rng.uniform(0, 1, (n_tiles, l_max, 3)),
@@ -69,29 +83,50 @@ def _props(n_tiles=64, l_max=128, opacity=(0.05, 0.999), seed=0):
     return props, counts
 
 
+def _case_props(case, seed):
+    l_max, opacity, scale = CASES[case]
+    props, counts = _props(l_max=l_max, opacity=opacity, scale=scale, seed=seed)
+    if case == "l512_ragged":
+        counts[8:16] = RAGGED_COUNTS
+    if case == "l128_edge":  # what the kernels' per-entry reach must not skip wrongly
+        rng = np.random.default_rng(seed + 100)
+        pick = rng.uniform(size=props.shape[:2])
+        props[..., 8] = np.where(pick < 0.25, rng.uniform(0.0, 1.0 / 255.0, pick.shape),
+                                 props[..., 8])  # opacity under alpha_min
+        flat = (pick >= 0.25) & (pick < 0.4)  # conics near singular: no bounded reach
+        props[..., 3] = np.where(flat, 0.9999 * np.sqrt(props[..., 2] * props[..., 4]),
+                                 props[..., 3])
+        props[..., 2] = np.where(pick >= 0.95, 1e-6, props[..., 2])  # footprints wider than a tile
+    return props, counts
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_kernels_match_plain(cuda, case):
-    l_max, opacity = CASES[case]
-    props, counts = _props(l_max=l_max, opacity=opacity)
+    props, counts = _case_props(case, seed=0)
     p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
     ref = B.blend_tiles_reference(p, c, TX_N, 16, *CFG)
     for touch in (False, True):
         out = B.blend_forward_cuda(p, c, TX_N, 16, *CFG, emit_touch=touch)
+        launch, v1 = B.forward_launcher(p, c, TX_N, 16, *CFG, emit_touch=touch, version=1)
+        launch()
+        torch.cuda.synchronize()
         for a, b, tol in zip(out[:3], ref[:3], (3e-5, 3e-4, 3e-5)):
             assert float((a - b).abs().max()) <= tol
+        for a, b, tol in zip(out[:3], v1[:3], (3e-5, 3e-4, 3e-5)):
+            assert float((a - b).abs().max()) <= tol
+        assert torch.equal(out[3], v1[3]) and torch.equal(out[4], v1[4])  # t_final, n_done
         if touch:
-            assert torch.equal(out[5], ref[3])
+            assert torch.equal(out[5], ref[3]) and torch.equal(out[5], v1[5])
         assert bool((out[4] <= c[:, None]).all())  # n_done never passes counts
-        if case in ("l512_mixed", "l512_low_opacity"):
-            assert int(out[4].max()) > 256  # pixels blended entries of the second batch
+        if case in ("l512_mixed", "l512_low_opacity", "l512_ragged"):
+            assert int(out[4].max()) > 256  # pixels blended entries of a later batch
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CASES))
 def test_backward_kernel_matches_plain_autograd(cuda, case):
-    l_max, opacity = CASES[case]
-    props, counts = _props(l_max=l_max, opacity=opacity, seed=1)
+    props, counts = _case_props(case, seed=1)
     c = torch.tensor(counts, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(0)
     w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
@@ -101,9 +136,55 @@ def test_backward_kernel_matches_plain_autograd(cuda, case):
         out = fn(p, c, TX_N, 16, *CFG)
         sum((o * wi).sum() for o, wi in zip(out, w)).backward()
         grads.append(p.grad)
-    k, r = grads
+    with torch.no_grad():
+        p = torch.tensor(props, device=cuda)
+        _, _, _, t_final, n_done, _ = B.blend_forward_cuda(p, c, TX_N, 16, *CFG, emit_touch=False)
+        launch, d_props = B.backward_launcher(p, t_final, n_done, *w, TX_N, 16, *CFG[:2],
+                                              version=1)
+        launch()
+        grads.append(d_props)
+    k, r, v1 = grads
     assert bool(torch.isfinite(k).all())
-    assert bool(((k - r).abs() <= 2e-3 * r.abs() + 1e-5 * r.abs().max()).all())
+    for ref in (r, v1):
+        assert bool(((k - ref).abs() <= 2e-3 * ref.abs() + 1e-5 * ref.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_backward_kernel_is_deterministic(cuda):
+    """Version 2 adds each warp's gradient row in a fixed order, without
+    atomics: two launches on the same inputs agree bit for bit."""
+    props, counts = _case_props("l512_mixed", seed=1)
+    p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
+    _, _, _, t_final, n_done, _ = B.blend_forward_cuda(p, c, TX_N, 16, *CFG, emit_touch=False)
+    a = B.blend_backward_cuda(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    b = B.blend_backward_cuda(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_launchers_time_the_kernels_alone(cuda):
+    """`forward_launcher`/`backward_launcher` relaunch a kernel of either
+    version into the same outputs and count nothing."""
+    props, counts = _case_props("l128", seed=2)
+    p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
+    before = dict(B.LAUNCHES)
+    for version in (2, 1):
+        launch, out = B.forward_launcher(p, c, TX_N, 16, *CFG, emit_touch=True, version=version)
+        launch()
+        first = [x.clone() for x in out]
+        launch()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
+        launch, d_props = B.backward_launcher(p, out[3], out[4], torch.ones((64, 3, 256), device=cuda),
+                                              torch.ones((64, 256), device=cuda),
+                                              torch.ones((64, 256), device=cuda), TX_N, 16,
+                                              *CFG[:2], version=version)
+        launch()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(d_props).all()) and float(d_props.abs().max()) > 0
+    assert dict(B.LAUNCHES) == before
 
 
 @pytest.mark.gpu
@@ -137,16 +218,15 @@ def test_render_tiled_on_card_matches_cpu(cuda):
 def _lab_props(case, seed):
     """The cases above with props zeroed past each tile's count (the L1
     contract) and a tile count that pair4 divides."""
-    l_max, opacity = CASES[case]
-    props, counts = _props(l_max=l_max, opacity=opacity, seed=seed)
+    props, counts = _case_props(case, seed)
     counts[8] = 100  # a count that is not a multiple of 32
-    props[np.arange(l_max)[None, :] >= counts[:, None]] = 0.0
+    props[np.arange(props.shape[1])[None, :] >= counts[:, None]] = 0.0
     return props, counts
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", BL.LAB_VARIANTS)
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", LAB_CASES)
 def test_lab_forward_kernel_matches_plain(cuda, case, variant):
     props, counts = _lab_props(case, seed=2)
     p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
@@ -160,7 +240,7 @@ def test_lab_forward_kernel_matches_plain(cuda, case, variant):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", LAB_CASES)
 def test_lab_moments_backward_matches_plain(cuda, case):
     props, counts = _lab_props(case, seed=3)
     p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)

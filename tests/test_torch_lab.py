@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache as jax_compilation_cache
 
 import monogs_dev_tpu.utils.compile_cache as compile_cache
 from monogs_dev_tpu.data.synthetic import make_synthetic_scene
@@ -33,6 +34,20 @@ from tests.test_torch_blend import CFG, TX_N, _loss_weights, _xla_grads, make_pr
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_persistent_compile_cache():
+    """This module compiles its JAX programs with the persistent XLA cache
+    (tests/conftest.py) off, and turns it back on after: the programs it
+    checks the port against are neither read from nor written to the cache
+    directory that the other test processes share."""
+    enabled = jax.config.jax_enable_compilation_cache
+    jax_compilation_cache.reset_cache()
+    jax.config.update("jax_enable_compilation_cache", False)
+    yield
+    jax.config.update("jax_enable_compilation_cache", enabled)
+    jax_compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +71,25 @@ def monkeypatch_module():
     mp = pytest.MonkeyPatch()
     yield mp
     mp.undo()
+
+
+def test_module_writes_nothing_to_a_compile_cache(tmp_path):
+    """The persistent cache stays off through this module: a fresh program,
+    which the cache's thresholds would keep, leaves no entry in the cache
+    directory."""
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    try:
+        jax_compilation_cache.reset_cache()
+        jax.config.update("jax_compilation_cache_dir", str(tmp_path))
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+        assert not jax.config.jax_enable_compilation_cache
+        jax.jit(lambda x: x * 3.25 + 1.5)(jnp.arange(7.0)).block_until_ready()
+        assert not os.listdir(tmp_path)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+        jax_compilation_cache.reset_cache()
 
 
 def lab_props():
