@@ -12,7 +12,9 @@
    timed: kernel-only (the C entry point into preallocated outputs, 20
    launches back to back between two CUDA events, median of 21 such runs)
    in turns with the first version, through the wrapper, and the plain
-   version;
+   version; then every L1 variant and L2 of the kernel lab the same way
+   against their plain versions and their first version
+   (csrc/blend_lab_v1.cu) (`check_lab`);
 4. slice: `configs/synthetic/bench_vga.yaml` (RGB-D, Gauss-Newton tracking)
    through `SLAM`, the code path of `slam_torch.py`: frames 0..11 for the
    tracked frames/s, then on to the first keyframe after frame 0 and two
@@ -23,10 +25,10 @@
    back, against the same steps on the CPU and against its full render;
 7. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
    kernel_lab.py`, every variant) on the lab scene at the lab's size, with
-   the launch counts of that run; phase 3 on the lab scene; then every L1
-   variant and L2 against its plain version (L2 also against autograd
-   through the plain blend), on the lab scene and on the slice's map after
-   init binned as mapping bins it, each timed with CUDA events;
+   the launch counts of that run; phase 3 on the lab scene. On the lab
+   scene, the post-init map and the monocular init map L2 is also held to
+   autograd through the plain blend, with no more entries outside
+   tolerance against float64 autograd than its first version;
 8. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
    `SLAM`, the code path of `bench_torch.py`: warm-up until the frontend and
    backend are initialized (by frame 162), 25 timed frames, and the checks
@@ -40,7 +42,7 @@ The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
 its bound on an H100 (`bound_ms`: the larger of the bytes it must move over
 3.35 TB/s and the fp32 operations this run's data needs over 67 TFLOP/s);
-K1-K3 also with the first version's time (`ms_v1`), the wrapper's
+each also with the first version's time (`ms_v1`), the wrapper's
 (`wrapper_ms`) and all of these on every prop set (`sets`). The last line
 is {"ok": true, "device": {...}}; any failed check exits non-zero before it.
 """
@@ -149,6 +151,21 @@ def cuda_ms(fn, reps: int = 20) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn's result, its milliseconds between two CUDA events), one call:
+    the plain versions of the lab, ~0.1 s a call, are timed by the call
+    that checks against them."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def kernel_ms(launchers) -> dict:
@@ -309,7 +326,8 @@ def scene_kernel_phase(config, dev):
     T0 = torch.as_tensor(ds.poses[0], dtype=torch.float32, device=dev)
     rcfg = raster_config_from(config)
     t_props, counts = tile_props(ds.scene_params, ds.scene_active, T0, ds.intr, rcfg)
-    return check_kernels("frame 0", t_props, counts, grid_dims(ds.intr, *tile_wh(rcfg))[0], rcfg)
+    return check_set("frame 0", t_props, counts, grid_dims(ds.intr, *tile_wh(rcfg))[0], rcfg,
+                     lab_full=False)
 
 
 def snapshot_map(slam, kf, name):
@@ -327,15 +345,16 @@ def snapshot_map(slam, kf, name):
 def map_kernel_phase(snapshots, intr, rcfg, dilate):
     """The kernels on mapped maps, binned as the mapping loop bins them
     (tiles dilated by `mapping_rebin_dilation`): the density the mapping
-    renders blend. Returns {label: check_kernels' results}."""
+    renders blend. L2 is held to autograd on every map but the RGB-D
+    slice's end map. Returns {label: check_set's results}."""
     from monogs_dev_tpu_torch.ops.rasterize import grid_dims, tile_wh
     from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
 
     out = {}
     for label, params, active, T in snapshots:
         t_props, counts = tile_props(params, active, T, intr, rcfg, dilate=dilate)
-        out[label] = check_kernels(label, t_props, counts, grid_dims(intr, *tile_wh(rcfg))[0],
-                                   rcfg)
+        out[label] = check_set(label, t_props, counts, grid_dims(intr, *tile_wh(rcfg))[0], rcfg,
+                               lab_full=not label.startswith("RGB-D end map"))
     return out
 
 
@@ -393,10 +412,13 @@ def tier_phase(slam):
           f"({int((comp.n_touched > 0).sum())} touched)", flush=True)
 
 
-def check_lab(label, t_props, counts, tx_n, rcfg):
-    """Every L1 variant against its plain version, and L2 against its plain
-    version and against autograd through the plain blend (K2's tolerances),
-    on these props; each timed beside its plain version with CUDA events."""
+def check_lab(label, t_props, counts, tx_n, rcfg, full):
+    """Every L1 variant and L2 against their plain versions on these props,
+    and with `full` L2 also against autograd through the plain blend in
+    float32 (K2's tolerances) and float64, where L2 may have no more entries
+    outside tolerance than its first version (csrc/blend_lab_v1.cu). Each is
+    timed: kernel-only beside its first version, in turns (`kernel_ms`),
+    through its wrapper, and the plain version."""
     import torch
 
     from monogs_dev_tpu_torch.ops import blend as B
@@ -413,19 +435,27 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
                                         tile_group=rcfg.tile_group)[3]
         for v in BL.LAB_VARIANTS:
             out = BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg)
-            ref = BL.lab_blend_reference(v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group)
-            torch.cuda.synchronize()
-            errs = {k: float((a - b).abs().max()) for k, a, b in zip(("color", "depth", "alpha"),
-                                                                    out, ref)}
+            launch_v1, out_v1 = BL.lab_forward_launcher(v, t_props, counts, tx_n, tile, *cfg,
+                                                        version=1)
+            launch_v1()
+            ref, plain_ms = timed(lambda v=v: BL.lab_blend_reference(
+                v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group))
+            errs, errs_v1 = ({k: float((a - b).abs().max()) for k, a, b in
+                              zip(("color", "depth", "alpha"), o, ref)} for o in (out, out_v1))
             for k, e in errs.items():
                 if not e <= TOL[k]:
                     fail(f"{label} L1/{v} {k} max |err| {e} > {TOL[k]}")
             r = res[f"L1/{v}"] = {"max_abs_err": max(errs.values()), "errs": errs}
-            r["ms"] = cuda_ms(lambda v=v: BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg))
-            r["plain_ms"] = cuda_ms(lambda v=v: BL.lab_blend_reference(
-                v, t_props, counts, tx_n, tile, *cfg, rcfg.tile_group), reps=3)
+            ms = kernel_ms({ver: BL.lab_forward_launcher(v, t_props, counts, tx_n, tile, *cfg,
+                                                         version=ver)[0] for ver in (2, 1)})
+            r["ms"], r["ms_v1"] = ms[2], ms[1]
+            r["wrapper_ms"] = cuda_ms(
+                lambda v=v: BL.lab_forward_cuda(v, t_props, counts, tx_n, tile, *cfg))
+            r["plain_ms"] = plain_ms
             r["bound_ms"], r["bound_by"] = bound(f"L1/{v}", counts, n_done, touch, p)
-            print(f"{label} L1/{v} vs plain: {errs}; {r['ms']:.4f} ms, plain "
+            print(f"{label} L1/{v} vs plain: {errs} (first version {errs_v1}); {r['ms']:.4f} ms "
+                  f"kernel-only (first version {r['ms_v1']:.4f} ms, "
+                  f"{r['ms_v1'] / r['ms']:.2f}x), wrapper {r['wrapper_ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
                   flush=True)
 
@@ -435,28 +465,35 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
                 torch.randn((t_props.shape[0], p), generator=gen, device=t_props.device))
         args = (t_props, t_final, n_done, *cots, tx_n, tile, *cfg[:2])
         got = BL.moments_backward_cuda(*args)
-        plain = BL.moments_backward_reference(*args, rcfg.tile_group)
-    # the gradient references: autograd through the plain blend in float32
-    # (what K2 is held to) and, for scale, in float64
-    refs = {}
-    for dtype in (torch.float64, torch.float32):
-        pr = t_props.to(dtype).requires_grad_(True)
-        out = B.blend_tiles_reference(pr, counts, tx_n, tile, *cfg, tile_group=rcfg.tile_group)
-        (g,) = torch.autograd.grad(sum((o * c.to(dtype)).sum() for o, c in zip(out[:3], cots)),
-                                   pr)
-        refs[dtype] = g.to(torch.float64)
-        del pr, out
-    with torch.no_grad():
-        k2 = B.blend_backward_cuda(t_props, t_final, n_done, *cots, tx_n, tile, *cfg[:2])
-    torch.cuda.synchronize()
+        launch_v1, got_v1 = BL.moments_launcher(*args, version=1)
+        launch_v1()
+        plain, plain_ms = timed(lambda: BL.moments_backward_reference(*args, rcfg.tile_group))
     if not bool(torch.isfinite(got).all()):
         fail(f"{label} L2: non-finite gradient")
-    g32, g64 = refs[torch.float32], refs[torch.float64]
+    refs = {"plain": plain}
+    if full:
+        # the gradient references: autograd through the plain blend in
+        # float32 (what K2 is held to) and in float64
+        for dtype in (torch.float64, torch.float32):
+            pr = t_props.to(dtype).requires_grad_(True)
+            out = B.blend_tiles_reference(pr, counts, tx_n, tile, *cfg,
+                                          tile_group=rcfg.tile_group)
+            (g,) = torch.autograd.grad(sum((o * c.to(dtype)).sum() for o, c in zip(out[:3], cots)),
+                                       pr)
+            refs[str(dtype)[6:] + " autograd"] = g
+            del pr, out
+        with torch.no_grad():
+            k2 = B.blend_backward_cuda(t_props, t_final, n_done, *cots, tx_n, tile, *cfg[:2])
+        torch.cuda.synchronize()
     errs, n_bad = {}, {}
-    for what, x, ref in (("L2 vs plain", got, plain), ("L2 vs plain autograd", got, g32),
-                         ("L2 vs float64 autograd", got, g64),
-                         ("K2 vs float64 autograd", k2, g64),
-                         ("float32 autograd vs float64 autograd", g32, g64)):
+    checks = [("L2", got, name, ref) for name, ref in refs.items()]
+    if full:
+        checks += [("L2 first version", got_v1, "float64 autograd", refs["float64 autograd"]),
+                   ("K2", k2, "float64 autograd", refs["float64 autograd"]),
+                   ("float32 autograd", refs["float32 autograd"], "float64 autograd",
+                    refs["float64 autograd"])]
+    for who, x, name, ref in checks:
+        what = f"{who} vs {name}"
         x, ref = x.to(torch.float64), ref.to(torch.float64)
         err = (x - ref).abs()
         ratio = err / (GRAD_ATOL + GRAD_RTOL * ref.abs())
@@ -472,26 +509,37 @@ def check_lab(label, t_props, counts, tx_n, rcfg):
               f"{ratio.numel()} outside it; outside rtol {GRAD_RTOL} atol {atol:.3g} "
               f"({L2_ATOL_REL} x max |grad| {float(ref.abs().max()):.4g}): {n_bad[what]}",
               flush=True)
-    for what in ("L2 vs plain", "L2 vs plain autograd"):
+    held = ["L2 vs plain"] + (["L2 vs float32 autograd"] if full else [])
+    for what in held:
         if n_bad[what]:
             fail(f"{label} {what}: {n_bad[what]} entries outside tolerance")
-    errs = {k: errs[k] for k in ("L2 vs plain", "L2 vs plain autograd")}
-    r = res["L2"] = {"max_abs_err": max(errs.values())}
+    if full and n_bad["L2 vs float64 autograd"] > n_bad["L2 first version vs float64 autograd"]:
+        fail(f"{label} L2: {n_bad['L2 vs float64 autograd']} entries outside tolerance against "
+             f"float64 autograd, more than the first version's "
+             f"{n_bad['L2 first version vs float64 autograd']}")
+    r = res["L2"] = {"max_abs_err": max(errs[k] for k in held)}
     with torch.no_grad():
-        r["ms"] = cuda_ms(lambda: BL.moments_backward_cuda(*args))
-        r["plain_ms"] = cuda_ms(lambda: BL.moments_backward_reference(*args, rcfg.tile_group),
-                                reps=3)
+        ms = kernel_ms({ver: BL.moments_launcher(*args, version=ver)[0] for ver in (2, 1)})
+        r["ms"], r["ms_v1"] = ms[2], ms[1]
+        r["wrapper_ms"] = cuda_ms(lambda: BL.moments_backward_cuda(*args))
+        r["plain_ms"] = plain_ms
     r["bound_ms"], r["bound_by"] = bound("L2", counts, n_done, touch, p)
-    print(f"{label} L2: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    print(f"{label} L2: {r['ms']:.4f} ms kernel-only (first version {r['ms_v1']:.4f} ms, "
+          f"{r['ms_v1'] / r['ms']:.2f}x), wrapper {r['wrapper_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return res
 
 
-def lab_phase(dev, snapshot, intr, rcfg, dilate):
+def check_set(label, t_props, counts, tx_n, rcfg, lab_full):
+    """K1-K3 (`check_kernels`) and L1/L2 (`check_lab`) on one prop set."""
+    return (check_kernels(label, t_props, counts, tx_n, rcfg),
+            check_lab(label, t_props, counts, tx_n, rcfg, lab_full))
+
+
+def lab_phase(dev):
     """The lab's entry point on the lab scene (the launch counts of that
-    run), then K1-K3 (`check_kernels`) and L1/L2 against their plain
-    versions on the lab scene, and L1/L2 on the slice's post-init map.
-    Returns (L1/L2 results, K1-K3 results on the lab scene)."""
+    run), then K1-K3 and L1/L2 (`check_set`) on the lab scene. Returns (L1/L2
+    launches, the lab scene's check_set results)."""
     import torch
 
     from monogs_dev_tpu_torch.data.synthetic import load_lab_scene
@@ -518,18 +566,7 @@ def lab_phase(dev, snapshot, intr, rcfg, dilate):
     tx_n = -(-KL.LAB_INTR.width // KL.LAB_RASTER.tile)
     print(f"lab scene: props {tuple(t_props.shape)}, entries {int(counts.sum())}, "
           f"max per tile {int(counts.max())}", flush=True)
-    kres = check_kernels("lab", t_props, counts, tx_n, KL.LAB_RASTER)
-    res = check_lab("lab", t_props, counts, tx_n, KL.LAB_RASTER)
-    label, m_params, m_active, T = snapshot
-    m_props, m_counts = KL.tile_props(m_params, m_active, T, intr, rcfg, dilate=dilate)
-    print(f"{label} lab: props {tuple(m_props.shape)}, entries {int(m_counts.sum())}, max per "
-          f"tile {int(m_counts.max())}, tiles over 256 entries {int((m_counts > 256).sum())}",
-          flush=True)
-    res_map = check_lab(label, m_props, m_counts, -(-intr.width // rcfg.tile), rcfg)
-    for name, r in res.items():
-        r["max_abs_err"] = max(r["max_abs_err"], res_map[name]["max_abs_err"])
-        r["launches"] = launches[name]
-    return res, kres
+    return launches, check_set("lab", t_props, counts, tx_n, KL.LAB_RASTER, lab_full=True)
 
 
 def profile_frames(slam, start: int, n: int, frame_ms: float):
@@ -708,12 +745,13 @@ def main() -> int:
     sets.update(map_kernel_phase(snapshots, slam.intr, slam.raster_cfg,
                                  slam.step_cfg.mapping_rebin_dilation))
     tier_phase(slam)
-    lres, sets["lab"] = lab_phase(dev, snapshots[0], slam.intr, slam.raster_cfg,
-                                  slam.step_cfg.mapping_rebin_dilation)
+    lab_launches, sets["lab"] = lab_phase(dev)
     del slam
     mono, mono_snap, intr, rcfg, dilate = mono_phase(load_config(CONFIG), dev)
     sets.update(map_kernel_phase([mono_snap], intr, rcfg, dilate))
     profiled = mono["profile"]
+    ksets = {label: k for label, (k, _) in sets.items()}
+    lsets = {label: lab for label, (_, lab) in sets.items()}
 
     kernels = [
         {
@@ -722,10 +760,10 @@ def main() -> int:
             "source": SOURCES["K"],
             "replaces": REPLACES[name],
             "launches": mono["launches"][name],
-            "max_abs_err": max(res[name]["max_abs_err"] for res in sets.values()),
-            **set_times(sets["frame 0"][name]),
+            "max_abs_err": max(res[name]["max_abs_err"] for res in ksets.values()),
+            **set_times(ksets["frame 0"][name]),
             "library_ms": None,  # no single PyTorch call computes the blend
-            "sets": {label: set_times(res[name]) for label, res in sets.items()},
+            "sets": {label: set_times(res[name]) for label, res in ksets.items()},
             "mono_device_ms_per_frame": (profiled["kernel_ms_per_frame"][name]
                                          if profiled else None),
         }
@@ -736,25 +774,30 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES["L"],
             "replaces": REPLACES[name[:2]],
-            "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
+            "launches": n,
+            "max_abs_err": max(res[name]["max_abs_err"] for res in lsets.values()),
+            **set_times(lsets["lab"][name]),
             "library_ms": None,
+            "sets": {label: set_times(res[name]) for label, res in lsets.items()},
         }
-        for name, r in lres.items()
+        for name, n in lab_launches.items()
     ]
     # K1-K3: launches in the monocular run (phase 8); ms (kernel-only), ms_v1
     # (the first version's, in turns with it), wrapper_ms, plain_ms and
     # bound_ms on the bench scene's frame-0 props (phase 3), and the same for
-    # every prop set under "sets"; max_abs_err over all sets. L1/L2: launches
-    # in the lab's run, ms/plain_ms/bound_ms on the lab scene's props (ms
-    # through the wrapper), max_abs_err over the lab scene and the post-init map
-    for label, res in sets.items():
+    # every prop set under "sets". L1/L2: launches in the lab's run, the same
+    # numbers on the lab scene's props, and on every prop set under "sets".
+    # max_abs_err over all sets.
+    for label, (kres, lres) in sets.items():
         print(f"{label}: kernel-only speed-up over the first version: "
-              + ", ".join(f"{k} {res[k]['ms_v1'] / res[k]['ms']:.2f}x" for k in ("K1", "K3", "K2")),
+              + ", ".join(f"{k} {r['ms_v1'] / r['ms']:.2f}x"
+                          for k, r in list(kres.items()) + list(lres.items())), flush=True)
+        fastest = min((k for k in lres if k.startswith("L1/")), key=lambda k: lres[k]["ms"])
+        print(f"{label}: lab answer, kernel-only: fastest L1 form {fastest} "
+              f"{lres[fastest]['ms']:.4f} ms against K1 {kres['K1']['ms']:.4f} ms "
+              f"({lres[fastest]['ms'] / kres['K1']['ms']:.2f}x; nocond "
+              f"{lres['L1/nocond']['ms'] / kres['K1']['ms']:.2f}x); L2 {lres['L2']['ms']:.4f} ms "
+              f"against K2 {kres['K2']['ms']:.4f} ms ({lres['L2']['ms'] / kres['K2']['ms']:.2f}x)",
               flush=True)
     print(f"wall time: {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

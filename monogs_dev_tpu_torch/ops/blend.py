@@ -11,8 +11,9 @@ They are compiled with `nvcc` for `sm_90a` at first use into `build/`,
 together with the first version of the same kernels (`csrc/blend_v1.cu`,
 kept as a yardstick: `forward_launcher`/`backward_launcher` with
 `version=1`, which count no launch; nothing of the system calls them) and
-the kernel lab's `csrc/blend_lab.cu` (ops/blend_lab.py), into one library
-called through `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on
+the kernel lab's `csrc/blend_lab.cu` and its first version
+`csrc/blend_lab_v1.cu` (ops/blend_lab.py), into one library called through
+`ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on
 the device of `props`: a CUDA tensor goes to the kernels (a build or launch
 failure raises), a CPU tensor goes to `blend_tiles_reference`, the plain
 torch port of the JAX package's `_blend_group` (ops/rasterize.py), whose
@@ -38,13 +39,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# each source with its own flags: blend.cu rounds alpha by hand and lets the
-# rest contract to FMA; the first version and the lab's variants are held to
-# their plain versions as compiled with no contraction at all
+# each source with its own flags: version 2 (blend.cu, blend_lab.cu) rounds
+# power, alpha and the transmittance by hand and lets the rest contract to
+# FMA; the first versions are held to their plain versions as compiled with
+# no contraction at all
 SOURCE_FLAGS: Dict[str, List[str]] = {
     "blend.cu": [],
     "blend_v1.cu": ["-fmad=false"],
-    "blend_lab.cu": ["-fmad=false"],
+    "blend_lab.cu": [],
+    "blend_lab_v1.cu": ["-fmad=false"],
 }
 SOURCES = [os.path.join(_PKG, "csrc", name) for name in SOURCE_FLAGS]
 
@@ -120,8 +123,10 @@ def build(verbose: bool = False) -> Tuple[str, float]:
     return out, time.time() - t0
 
 
-# the C entry points (forward, backward) of each version of K1-K3
+# the C entry points (forward, backward) of each version of K1-K3, and of
+# the lab's L1 and L2 (ops/blend_lab.py)
 _ENTRIES = {2: ("blend_fwd", "blend_bwd"), 1: ("blend_fwd_v1", "blend_bwd_v1")}
+LAB_ENTRIES = {2: ("lab_blend_fwd", "lab_moments_bwd"), 1: ("lab_blend_fwd_v1", "lab_moments_bwd_v1")}
 
 
 def _load():
@@ -145,16 +150,18 @@ def _load():
                     _c_void_p, _c_void_p,
                 ]
                 getattr(lib, bwd).restype = _c_int
-            lib.lab_blend_fwd.argtypes = [
-                _c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-                _c_float, _c_float, _c_float, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            ]
-            lib.lab_blend_fwd.restype = _c_int
-            lib.lab_moments_bwd.argtypes = [
-                _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
-                _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            ]
-            lib.lab_moments_bwd.restype = _c_int
+            for fwd, bwd in LAB_ENTRIES.values():
+                getattr(lib, fwd).argtypes = [
+                    _c_int, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                    _c_float, _c_float, _c_float, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                ]
+                getattr(lib, fwd).restype = _c_int
+                getattr(lib, bwd).argtypes = [
+                    _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
+                    _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                    _c_void_p,
+                ]
+                getattr(lib, bwd).restype = _c_int
             _lib = lib
     return _lib
 
@@ -349,6 +356,27 @@ def blend_tiles_reference(props, counts, tx_n, tile=16, alpha_clamp=0.99,
         touch = ((alpha >= alpha_min) & contributing & live).sum(dim=2)
         outs.append((color, depth, w.sum(dim=1), touch.to(torch.int32)))
     return tuple(torch.cat(x, dim=0) for x in zip(*outs))
+
+
+def entry_reach_reference(props: torch.Tensor, alpha_min: float = 1.0 / 255.0):
+    """Plain twin of the kernels' `entry_reach` (csrc/blend.cu, blend_lab.cu),
+    for the tests: per entry of props (..., 10), the half-widths (rx, ry) of
+    the box around its mean outside which its alpha is below alpha_min, in
+    float32 with the kernel's expressions (its fast log, division and rsqrt
+    taken exactly). -inf: the entry reaches no pixel; +inf: no bound."""
+    ca, cb, cc, op = props[..., 2], props[..., 3], props[..., 4], props[..., 8]
+    am = torch.tensor(alpha_min, dtype=torch.float32)
+    tau = 2.02 * torch.log(op / am) + 1e-3
+    det_lo = ca * cc - cb * cb - 1e-3 * ((ca * cc).abs() + cb * cb)
+    bounded = (am > 0.0) & (ca > 0.0) & (cc > 0.0) & (det_lo > 0.0) & (tau > 0.0)
+    s = tau / det_lo
+    x, y = s * cc, s * ca
+    inf = torch.full_like(x, float("inf"))
+    out = []
+    for v in (x, y):
+        r = torch.where(bounded, 1.001 * v * torch.rsqrt(v) + 0.01, inf)
+        out.append(torch.where(op < am, -inf, r))
+    return out[0], out[1]
 
 
 def _dispatch(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min, emit_touch,

@@ -2,11 +2,13 @@
 CUDA kernels and their plain versions.
 
 Counterpart of `tools/kernel_lab.py::variant_blend` and `::moments_bwd`.
-The kernels live in `csrc/blend_lab.cu` and are built with the blend
-kernels into one library (ops/blend.py::build). `lab_blend` and
-`moments_backward` dispatch on the device of `props`: a CUDA tensor goes to
-the kernel (a build or launch failure raises), a CPU tensor to the plain
-version.
+The kernels live in `csrc/blend_lab.cu` (version 2) and are built with the
+blend kernels into one library (ops/blend.py::build), together with their
+first version (the lab's second source in `SOURCE_FLAGS`), a yardstick
+reached only through `lab_forward_launcher`/`moments_launcher` with
+`version=1` (which count no launch). `lab_blend` and `moments_backward` dispatch on the device of
+`props`: a CUDA tensor goes to the kernel (a build or launch failure
+raises), a CPU tensor to the plain version.
 
 L1 variants (`LAB_VARIANTS`; `pairN` for N in 2, 4) compute K1's forward
 (color, depth, alpha) in other arithmetic forms: the conic power directly or
@@ -23,21 +25,24 @@ final sums.
 L2 is the blend's props gradient with each chunk's per-entry pixel
 reductions taken as moments against the tile-local basis [1, lx, ly, lx^2,
 lx ly, ly^2, gD, gC0..2]. It reads K1's residuals (`t_final`, `n_done` per
-pixel; `blend_residuals`) and recovers each chunk's starting transmittance
-by dividing out the chunk's product, as the TPU lab did. The conic
-gradients cancel in the moments form, so the basis is centred on the tile,
-the moments are summed accurately (Kahan-compensated fp32 sums in the
-kernel, float64 sums of the float32 products in the plain version) and
-combined into d_mean and d_conic in float64.
+pixel; `blend_residuals`). The plain version recovers each chunk's starting
+transmittance by dividing out the chunk's product, as the TPU lab did; the
+kernel divides out entry by entry, as K2 does (the same function, rounded
+otherwise). The conic gradients cancel in the moments form, so the basis is
+centred on the tile, the moments are summed accurately (fp32 warp sums of
+fp32 products combined across warps in fp64 in the kernel, float64 sums of
+the float32 products in the plain version) and combined into d_mean and
+d_conic in float64.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from .blend import D_IN, LAUNCHES, _check, _load, _raise_on, _tile_wh, blend_forward_cuda
+from .blend import (D_IN, LAB_ENTRIES, LAUNCHES, _check, _load, _raise_on, _tile_wh,
+                    blend_forward_cuda)
 
 CHUNK = 32
 LAB_VARIANTS = ("nocond", "acc8", "trimat", "mxu", "lean", "storew", "pair2", "pair4")
@@ -70,10 +75,14 @@ def _check_tile_count(variant: str, n_tiles: int) -> None:
 # ------------------------------------------------------------------- L1
 
 
-def lab_forward_cuda(variant, props, counts, tx_n, tile, alpha_clamp=0.99,
-                     alpha_min=1.0 / 255.0, t_min=1e-4):
-    """Launch L1 `variant`: color (T,3,P), depth (T,P), alpha (T,P).
-    Props past each tile's count must be zero (see the module note)."""
+def lab_forward_launcher(variant, props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
+                         version: int = 2) -> Tuple[Callable[[], None], tuple]:
+    """Check the inputs of L1 `variant` and allocate its outputs, color
+    (T,3,P), depth (T,P) and alpha (T,P). Returns (launch, outputs):
+    `launch()` runs the kernel of `version` (2, or the first version 1) into
+    those outputs through its C entry point on the current stream and does
+    no other host work, so that repeated launches time the kernel alone. It
+    counts no launch."""
     code, _, _ = _form(variant)
     tw, th = _tile_wh(tile)
     p = tw * th
@@ -83,21 +92,33 @@ def lab_forward_cuda(variant, props, counts, tx_n, tile, alpha_clamp=0.99,
     _check(props, "props", torch.float32, (t, l, D_IN))
     _check(counts, "counts", torch.int32, (t,))
     _check_tile_count(variant, t)
-    lib = _load()
+    name = LAB_ENTRIES[version][0]
+    fn = getattr(_load(), name)
     dev = props.device
     color = torch.empty((t, 3, p), dtype=torch.float32, device=dev)
     depth = torch.empty((t, p), dtype=torch.float32, device=dev)
     alpha = torch.empty((t, p), dtype=torch.float32, device=dev)
-    err = lib.lab_blend_fwd(
-        code, props.data_ptr(), counts.data_ptr(), t, l, int(tx_n), tw, th,
-        float(alpha_clamp), float(alpha_min), float(t_min),
-        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, f"lab_blend_fwd ({variant})")
+    args = (code, props.data_ptr(), counts.data_ptr(), t, l, int(tx_n), tw, th,
+            float(alpha_clamp), float(alpha_min), float(t_min),
+            color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch() -> None:
+        _raise_on(fn(*args), f"{name} ({variant})")
+
+    return launch, (color, depth, alpha)
+
+
+def lab_forward_cuda(variant, props, counts, tx_n, tile, alpha_clamp=0.99,
+                     alpha_min=1.0 / 255.0, t_min=1e-4):
+    """Launch L1 `variant`: color (T,3,P), depth (T,P), alpha (T,P).
+    Props past each tile's count must be zero (see the module note)."""
+    launch, out = lab_forward_launcher(variant, props, counts, tx_n, tile, alpha_clamp,
+                                       alpha_min, t_min)
+    launch()
     LAUNCHES["L1"] += 1
     VARIANT_LAUNCHES[variant] += 1
-    return color, depth, alpha
+    return out
 
 
 def _pixel_coords(tw: int, th: int, dev):
@@ -241,9 +262,12 @@ def blend_residuals(props, counts, tx_n, tile=16, alpha_clamp=0.99, alpha_min=1.
                                      tile_group)
 
 
-def moments_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n, tile,
-                          alpha_clamp=0.99, alpha_min=1.0 / 255.0):
-    """Launch L2: d_props (T, L, 10) from K1's residuals and the cotangents."""
+def moments_launcher(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n, tile,
+                     alpha_clamp, alpha_min,
+                     version: int = 2) -> Tuple[Callable[[], None], torch.Tensor]:
+    """L2's counterpart of `lab_forward_launcher`: checks the inputs,
+    allocates d_props (T, L, 10) (zero: the kernel writes the entries some
+    pixel multiplied in) and returns (launch, d_props)."""
     tw, th = _tile_wh(tile)
     p = tw * th
     if p % 32 or p > 512:
@@ -255,14 +279,26 @@ def moments_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_
     _check(g_color, "g_color", torch.float32, (t, 3, p))
     _check(g_depth, "g_depth", torch.float32, (t, p))
     _check(g_alpha, "g_alpha", torch.float32, (t, p))
-    lib = _load()
+    name = LAB_ENTRIES[version][1]
+    fn = getattr(_load(), name)
     d_props = torch.zeros((t, l, D_IN), dtype=torch.float32, device=props.device)
-    err = lib.lab_moments_bwd(
-        props.data_ptr(), t, l, int(tx_n), tw, th, float(alpha_clamp), float(alpha_min),
-        t_final.data_ptr(), n_done.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
-        g_alpha.data_ptr(), d_props.data_ptr(), torch.cuda.current_stream(props.device).cuda_stream,
-    )
-    _raise_on(err, "lab_moments_bwd")
+    args = (props.data_ptr(), t, l, int(tx_n), tw, th, float(alpha_clamp), float(alpha_min),
+            t_final.data_ptr(), n_done.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
+            g_alpha.data_ptr(), d_props.data_ptr(),
+            torch.cuda.current_stream(props.device).cuda_stream)
+
+    def launch() -> None:
+        _raise_on(fn(*args), name)
+
+    return launch, d_props
+
+
+def moments_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n, tile,
+                          alpha_clamp=0.99, alpha_min=1.0 / 255.0):
+    """Launch L2: d_props (T, L, 10) from K1's residuals and the cotangents."""
+    launch, d_props = moments_launcher(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
+                                       tile, alpha_clamp, alpha_min)
+    launch()
     LAUNCHES["L2"] += 1
     return d_props
 

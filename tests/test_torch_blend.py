@@ -199,14 +199,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_each_source_builds_with_its_own_flags():
-    """blend.cu (version 2) contracts multiply-adds: it rounds alpha by hand.
-    The first version and the lab keep -fmad=false. Every source gets one
+    """Version 2 (blend.cu, blend_lab.cu) contracts multiply-adds: it rounds
+    power, alpha and the transmittance by hand. The first versions
+    (blend_v1.cu, blend_lab_v1.cu) keep -fmad=false. Every source gets one
     `nvcc -c` into its own object, and the library's name hashes the flags."""
     cmds = B.compile_commands("nvcc", "/build", verbose=True)
     by_src = {cmd[-1].rsplit("/", 1)[-1]: cmd for cmd in cmds}
-    assert set(by_src) == {"blend.cu", "blend_v1.cu", "blend_lab.cu"}
-    assert "-fmad=false" not in by_src["blend.cu"]
-    assert "-fmad=false" in by_src["blend_v1.cu"] and "-fmad=false" in by_src["blend_lab.cu"]
+    assert set(by_src) == {"blend.cu", "blend_v1.cu", "blend_lab.cu", "blend_lab_v1.cu"}
+    for name in ("blend.cu", "blend_lab.cu"):
+        assert "-fmad=false" not in by_src[name]
+    for name in ("blend_v1.cu", "blend_lab_v1.cu"):
+        assert "-fmad=false" in by_src[name]
     for name, cmd in by_src.items():
         assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
         assert cmd[-4:-1] == ["-c", "-o", f"/build/{name}.o"] and "-v" in cmd
@@ -251,17 +254,23 @@ def test_launchers_refuse_cpu_tensors():
 
 
 def test_no_system_module_reaches_the_first_version():
-    """Version 1 of K1-K3 (csrc/blend_v1.cu) is reached only through
-    `forward_launcher`/`backward_launcher` with `version=1`. No module of the
-    port and no entry point calls the launchers or names a version-1 entry
-    point, except ops/blend.py, whose counted wrappers call them with the
-    default version 2: no SLAM run can launch version 1."""
+    """Version 1 of K1-K3 (csrc/blend_v1.cu) and of the lab's L1/L2
+    (csrc/blend_lab_v1.cu) is reached only through the launchers with
+    `version=1`: `forward_launcher`/`backward_launcher` (ops/blend.py) and
+    `lab_forward_launcher`/`moments_launcher` (ops/blend_lab.py). No module
+    of the port and no entry point calls the launchers or names a version-1
+    entry point, except those two modules, whose counted wrappers call them
+    with the default version 2 (the entry points' names live in ops/blend.py):
+    no SLAM or lab run can launch version 1."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "monogs_dev_tpu_torch")
     blend_py = os.path.join(pkg, "ops", "blend.py")
+    lab_py = os.path.join(pkg, "ops", "blend_lab.py")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
     files += [os.path.join(root, f) for f in ("slam_torch.py", "bench_torch.py")]
-    n_args = {"forward_launcher": 8, "backward_launcher": 10}  # every argument but `version`
+    # every argument but `version`, and the one module that may call each
+    n_args = {"forward_launcher": (8, blend_py), "backward_launcher": (10, blend_py),
+              "lab_forward_launcher": (8, lab_py), "moments_launcher": (10, lab_py)}
     calls = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -271,9 +280,66 @@ def test_no_system_module_reaches_the_first_version():
                 func = node.func
                 name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", None)
                 if name in n_args:
-                    assert path == blend_py, f"{path}:{node.lineno} calls {name}"
-                    assert not node.keywords and len(node.args) == n_args[name], node.lineno
+                    n, owner = n_args[name]
+                    assert path == owner, f"{path}:{node.lineno} calls {name}"
+                    assert not node.keywords and len(node.args) == n, node.lineno
                     calls.append(name)
             elif isinstance(node, ast.Constant) and isinstance(node.value, str):
                 assert path == blend_py or "_v1" not in node.value, f"{path}:{node.lineno}"
-    assert sorted(calls) == ["backward_launcher", "forward_launcher"]
+    assert sorted(calls) == sorted(n_args)
+    assert set(B.LAB_ENTRIES[1]) == {"lab_blend_fwd_v1", "lab_moments_bwd_v1"}
+
+
+def _reach_inputs(kind):
+    """(props (T, L, 10), tiles across) for the reach test: a cut of the
+    committed lab scene (3,000 blobs at 128x96, tiles of up to 128 entries),
+    or the card tests' `l128_edge` props (opacity under alpha_min, conics
+    near singular, footprints wider than a tile) with footprints down to
+    0.3 px."""
+    if kind == "lab_scene":
+        from monogs_dev_tpu_torch.data.synthetic import load_lab_scene
+        from monogs_dev_tpu_torch.models.camera import Intrinsics
+        from monogs_dev_tpu_torch.ops.raster_types import RasterConfig
+        from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
+
+        params = load_lab_scene("cpu").map(lambda x: x[:3000])
+        tp, _ = tile_props(params, torch.ones(3000, dtype=torch.bool), torch.eye(4),
+                           Intrinsics(fx=115.2, fy=115.2, cx=64.0, cy=48.0, width=128, height=96),
+                           RasterConfig(max_per_tile=128, k_dup=16, tile_group=12))
+        return tp, 8
+    from tests.test_torch_gpu import CASES, TX_N as GPU_TX_N, _case_props, _props
+
+    props, _ = _case_props("l128_edge", seed=7)
+    small, _ = _props(l_max=CASES["l128"][0], scale=(0.3, 1.0), seed=8)
+    return torch.tensor(np.concatenate([props, small], axis=1)), GPU_TX_N
+
+
+@pytest.mark.parametrize("rank6", [False, True], ids=["direct", "rank6"])
+@pytest.mark.parametrize("kind", ["lab_scene", "l128_edge"])
+def test_entry_reach_bounds_alpha(kind, rank6):
+    """The kernels skip an entry for the pixels outside its reach box
+    (csrc/blend.cu, blend_lab.cu::entry_reach): no pixel where the entry's
+    alpha, in either power form of the lab (direct, or the rank-6 form of mxu
+    and lean, ops/blend_lab.py::_chunk_alpha), is >= alpha_min may lie
+    outside the box. The box must also skip something."""
+    from monogs_dev_tpu_torch.ops.blend_lab import _chunk_alpha, _pixel_coords
+
+    props, tx_n = _reach_inputs(kind)
+    n_tiles = props.shape[0]
+    tid = torch.arange(n_tiles)
+    ox, oy = ((tid % tx_n) * TILE).float(), ((tid // tx_n) * TILE).float()
+    lx, ly = _pixel_coords(TILE, TILE, "cpu")
+    alpha = _chunk_alpha(props, ox, oy, lx, ly, rank6, CFG[0], CFG[1])  # (T, L, P)
+    rx, ry = B.entry_reach_reference(props, CFG[1])
+    dx = (ox[:, None, None] + lx) - props[..., 0:1]
+    dy = (oy[:, None, None] + ly) - props[..., 1:2]
+    outside = (dx.abs() > rx[..., None]) | (dy.abs() > ry[..., None])
+    hit = alpha >= CFG[1]
+    assert int(hit.sum()) > 0
+    assert int((hit & outside).sum()) == 0
+    # the hit nearest its box's edge, as a share of the half-width
+    edge = torch.maximum(dx.abs() / rx[..., None], dy.abs() / ry[..., None])[hit]
+    assert float(edge.max()) < 1.0
+    assert float(outside.float().mean()) > 0.3
+    if kind == "l128_edge":  # both kinds of unbounded reach are in the inputs
+        assert bool(torch.isneginf(rx).any()) and bool(torch.isposinf(rx).any())

@@ -1,6 +1,7 @@
 """The CUDA blend kernels (K1-K3) and the kernel lab's (L1 variants, L2)
 against their plain torch versions, on a card; K1-K3 also against their
-first version (csrc/blend_v1.cu), which they must reproduce.
+first version (csrc/blend_v1.cu), which they must reproduce, and L1/L2's
+first version (csrc/blend_lab_v1.cu) against the same plain versions.
 
 Every test here is marked `gpu` and skips itself without a CUDA device. The
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -60,7 +61,6 @@ CASES = {
     "l512_ragged": (512, (0.003, 0.3), (1.0, 8.0)),
     "l128_edge": (128, (0.05, 0.999), (1.0, 8.0)),
 }
-LAB_CASES = ("l128", "l512_mixed", "l512_low_opacity", "l512_saturated")
 # counts of l512_ragged's tiles 8..15: no multiple of 64, 128 or 256
 RAGGED_COUNTS = (511, 449, 385, 321, 257, 193, 129, 1)
 
@@ -226,33 +226,85 @@ def _lab_props(case, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", BL.LAB_VARIANTS)
-@pytest.mark.parametrize("case", LAB_CASES)
+@pytest.mark.parametrize("case", list(CASES))
 def test_lab_forward_kernel_matches_plain(cuda, case, variant):
+    """Both versions of L1 against the plain version, on every case: the
+    edge inputs check version 2's reach skip (also against the rank-6 power
+    of mxu and lean), the saturated and 512-entry ones its saturation exit
+    and its staging across batches."""
     props, counts = _lab_props(case, seed=2)
     p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
     ref = BL.lab_blend_reference(variant, p, c, TX_N, 16, *CFG)
     before = BL.VARIANT_LAUNCHES[variant]
     out = BL.lab_blend(variant, p, c, TX_N, 16, *CFG)
+    launch, v1 = BL.lab_forward_launcher(variant, p, c, TX_N, 16, *CFG, version=1)
+    launch()
     torch.cuda.synchronize()
     assert BL.VARIANT_LAUNCHES[variant] == before + 1
-    for name, a, b, tol in zip(("color", "depth", "alpha"), out, ref, (3e-5, 3e-4, 3e-5)):
-        assert float((a - b).abs().max()) <= tol, name
+    for got in (out, v1):
+        for name, a, b, tol in zip(("color", "depth", "alpha"), got, ref, (3e-5, 3e-4, 3e-5)):
+            assert float((a - b).abs().max()) <= tol, name
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", LAB_CASES)
-def test_lab_moments_backward_matches_plain(cuda, case):
-    props, counts = _lab_props(case, seed=3)
+def _lab_backward_inputs(case, seed, cuda):
+    props, counts = _lab_props(case, seed=seed)
     p, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
     t_final, n_done = BL.blend_residuals(p, c, TX_N, 16, *CFG)
+    return p, c, w, t_final, n_done
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_lab_moments_backward_matches_plain(cuda, case):
+    """Both versions of L2 against its plain version and against float32
+    autograd through the plain blend."""
+    p, c, w, t_final, n_done = _lab_backward_inputs(case, 3, cuda)
     got = BL.moments_backward(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    launch, v1 = BL.moments_launcher(p, t_final, n_done, *w, TX_N, 16, *CFG[:2], version=1)
+    launch()
     plain = BL.moments_backward_reference(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
     pr = p.clone().requires_grad_(True)
     out = B.blend_tiles_reference(pr, c, TX_N, 16, *CFG)
     sum((o * wi).sum() for o, wi in zip(out[:3], w)).backward()
     torch.cuda.synchronize()
-    assert bool(torch.isfinite(got).all())
-    for ref in (plain, pr.grad):
-        assert bool(((got - ref).abs() <= 2e-3 * ref.abs() + 1e-5 * ref.abs().max()).all())
+    for x in (got, v1):
+        assert bool(torch.isfinite(x).all())
+        for ref in (plain, pr.grad):
+            assert bool(((x - ref).abs() <= 2e-3 * ref.abs() + 1e-5 * ref.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_lab_moments_backward_is_deterministic(cuda):
+    """Version 2 of L2 combines each warp's moment row in a fixed order,
+    without atomics: two launches on the same inputs agree bit for bit."""
+    p, _, w, t_final, n_done = _lab_backward_inputs("l512_mixed", 3, cuda)
+    a = BL.moments_backward(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    b = BL.moments_backward(p, t_final, n_done, *w, TX_N, 16, *CFG[:2])
+    assert torch.equal(a, b) and float(a.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_lab_launchers_time_the_kernels_alone(cuda):
+    """`lab_forward_launcher`/`moments_launcher` relaunch a kernel of either
+    version into the same outputs and count nothing."""
+    p, c, w, t_final, n_done = _lab_backward_inputs("l128", 4, cuda)
+    before = dict(B.LAUNCHES), dict(BL.VARIANT_LAUNCHES)
+    for version in (2, 1):
+        for variant in ("nocond", "lean", "pair4"):
+            launch, out = BL.lab_forward_launcher(variant, p, c, TX_N, 16, *CFG, version=version)
+            launch()
+            first = [x.clone() for x in out]
+            launch()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, out))
+            assert float(out[2].max()) > 0
+        launch, d_props = BL.moments_launcher(p, t_final, n_done, *w, TX_N, 16, *CFG[:2],
+                                              version=version)
+        launch()
+        first = d_props.clone()
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(first, d_props) and float(d_props.abs().max()) > 0
+    assert (dict(B.LAUNCHES), dict(BL.VARIANT_LAUNCHES)) == before

@@ -235,6 +235,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         BL.lab_blend("pair2", p[:3], c[:3], TX_N, 16)
     with pytest.raises(ValueError, match="unknown lab variant"):
         BL.lab_blend("pair3", p, c, TX_N, 16)
+    for version in (2, 1):  # the launchers that time either version
+        with pytest.raises(ValueError, match="CUDA"):
+            BL.lab_forward_launcher("trimat", p, c, TX_N, 16, *CFG, version=version)
+        with pytest.raises(ValueError, match="CUDA"):
+            BL.moments_launcher(p, z, z.int(), torch.zeros((4, 3, 256)), z, z, TX_N, 16,
+                                *CFG[:2], version=version)
     before = dict(B.LAUNCHES), dict(BL.VARIANT_LAUNCHES)
     BL.lab_blend("mxu", p, c, TX_N, 16)  # CPU tensors take the plain version
     assert (dict(B.LAUNCHES), dict(BL.VARIANT_LAUNCHES)) == before
