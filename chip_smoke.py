@@ -17,26 +17,36 @@
    (csrc/blend_lab_v1.cu) (`check_lab`);
 4. slice: `configs/synthetic/bench_vga.yaml` (RGB-D, Gauss-Newton tracking)
    through `SLAM`, the code path of `slam_torch.py`: frames 0..11 for the
-   tracked frames/s, then on to the first keyframe after frame 0 and two
-   frames past it, with the kernel launch counts of that run and the ATE;
-5. map kernels: phase 3 again, on the map after the init mapping and at
-   the end of the slice, binned as the mapping loop bins them;
-6. tiers: the slice's final map compacted to a smaller tier and grown
-   back, against the same steps on the CPU and against its full render;
-7. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
+   tracked frames/s, with the kernel launch counts of that run;
+5. parity: `configs/synthetic/bench_vga_parity.yaml` (RGB-D, the
+   reference's Adam tracking loop: the pose gradient through K1/K2 at every
+   iteration) through `SLAM`, the code path of `slam_torch.py --eval`:
+   frames 0..11 for the tracked frames/s, on to the first keyframe after
+   frame 0 within PARITY_BUDGET_S (else it stops and says so), the Adam
+   iterations a frame, the launch counts and the ATE; PARITY_PROFILE_FRAMES
+   profiled frames; the first iteration's loss and gradient at one frame of
+   the run, kernels against the plain blend (`gradient_check`); the map
+   tiers (`tier_phase`: the map after the first keyframe compacted to a
+   smaller tier and grown back, against the same steps on the CPU and
+   against its full render); then
+   `SLAM.evaluate` (colour refinement, PSNR/SSIM/LPIPS before and after,
+   the ATE, PSNR-json and PLY artifacts in a temporary directory);
+6. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
    kernel_lab.py`, every variant) on the lab scene at the lab's size, with
    the launch counts of that run; phase 3 on the lab scene. On the lab
    scene, the post-init map and the monocular init map L2 is also held to
    autograd through the plain blend, with no more entries outside
    tolerance against float64 autograd than its first version;
-8. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
+7. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
    `SLAM`, the code path of `bench_torch.py`: warm-up until the frontend and
    backend are initialized (by frame 162), 25 timed frames, and the checks
    (finite poses, a full window of keyframes, scale-corrected keyframe ATE
    under 8 cm, K1/K2/K3 launched in the run);
-   then up to 20 more frames under `torch.profiler` (each K kernel's device
-   ms per frame, the device's idle share), and phase 3 on the map at
-   initialization, binned as mapping bins it.
+   then PROFILE_FRAMES more frames under `torch.profiler` (each K kernel's
+   device ms per frame, the device's idle share);
+8. map kernels: phase 3 again on the maps after the RGB-D init mapping,
+   after the parity run's first keyframe, and at the monocular
+   initialization, binned as the mapping loop bins them.
 
 The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
@@ -52,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,9 +72,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga.yaml")
+PARITY_CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga_parity.yaml")
 N_FRAMES = 12  # frames 2..11 give the tracked frames/s
-MAX_FRAMES = 96  # the first keyframe after frame 0 must come by then
-AFTER_KF = 2  # frames tracked against the map that the keyframe grew
+MAX_FRAMES = 96  # the parity run's first keyframe after frame 0 by then
 TOL = {"color": 3e-5, "alpha": 3e-5, "depth": 3e-4}
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5  # atol: fp32 sums of ~256 pixel terms in another order
 # L2's absolute floor, relative to the largest gradient (as tests/test_torch_gpu.py
@@ -84,11 +95,24 @@ REPLACES = {
 # each burst queued behind ~1 ms of device sleep
 ROUNDS, BURST, SLEEP_CYCLES = 21, 20, 2_000_000
 # monocular frames profiled after the timed window, fewer where the sequence
-# ends first: K2 runs only in keyframe mapping, so 5 frames often hold none
-PROFILE_FRAMES = 20
+# ends first (20 until the parity phase took their time)
+PROFILE_FRAMES = 8
 # profiler kernel names of K1-K3
 PROFILE_NAMES = {"K1": "blend_fwd_kernel_v2<false>", "K3": "blend_fwd_kernel_v2<true>",
                  "K2": "blend_bwd_kernel_v2"}
+# parity phase: the run goes on past frame 11 to the first keyframe after
+# frame 0 while its wall time stays under PARITY_BUDGET_S; the Adam tracker's
+# first iteration at PARITY_GRAD_FRAME is checked kernels against the plain
+# blend (gradient within GRAD_CHECK_REL x max|g|, loss within LOSS_CHECK_REL
+# relative); PARITY_PROFILE_FRAMES more frames are profiled
+PARITY_BUDGET_S = 200.0
+PARITY_GRAD_FRAME = 6
+GRAD_CHECK_REL, LOSS_CHECK_REL = 1e-3, 1e-5
+PARITY_PROFILE_FRAMES = 2
+RGBD_ATE_BAR = 0.03  # PERF.md section 2
+# CUDA runtime calls in which the host waits for the device (device-to-host
+# copies of the stop tests' values, synchronizations)
+HOST_WAIT_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # fp32 ops per (entry, pixel) pair whose alpha the blend uses, counted from
@@ -345,8 +369,8 @@ def snapshot_map(slam, kf, name):
 def map_kernel_phase(snapshots, intr, rcfg, dilate):
     """The kernels on mapped maps, binned as the mapping loop bins them
     (tiles dilated by `mapping_rebin_dilation`): the density the mapping
-    renders blend. L2 is held to autograd on every map but the RGB-D
-    slice's end map. Returns {label: check_set's results}."""
+    renders blend. L2 is held to autograd on every map but the end maps of
+    the RGB-D and parity runs. Returns {label: check_set's results}."""
     from monogs_dev_tpu_torch.ops.rasterize import grid_dims, tile_wh
     from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
 
@@ -354,7 +378,7 @@ def map_kernel_phase(snapshots, intr, rcfg, dilate):
     for label, params, active, T in snapshots:
         t_props, counts = tile_props(params, active, T, intr, rcfg, dilate=dilate)
         out[label] = check_set(label, t_props, counts, grid_dims(intr, *tile_wh(rcfg))[0], rcfg,
-                               lab_full=not label.startswith("RGB-D end map"))
+                               lab_full=" end map" not in label)
     return out
 
 
@@ -366,12 +390,13 @@ def _map_fields(gmap):
 
 
 def tier_phase(slam):
-    """The map tiers on the card. The slice's window never fills, so its
-    run neither compacts nor grows the map; this compacts the slice's final
-    map to the smallest power-of-two tier that holds its alive rows and
-    grows it back (`compact_map`, `resize_map`, as `BackendEngine`'s tiers
-    call them). Every field must equal the same steps on a CPU copy, and
-    the compacted map must render what the full map renders."""
+    """The map tiers on the card. The parity run's window never fills, so
+    it neither compacts nor grows the map; this compacts its map after the
+    first keyframe's mapping and prune to the smallest power-of-two tier
+    that holds its alive rows and grows it back (`compact_map`,
+    `resize_map`, as `BackendEngine`'s tiers call them). Every field must
+    equal the same steps on a CPU copy, and the compacted map must render
+    what the full map renders."""
     import torch
 
     from monogs_dev_tpu_torch.models.gaussians import compact_map, resize_map
@@ -569,12 +594,13 @@ def lab_phase(dev):
     return launches, check_set("lab", t_props, counts, tx_n, KL.LAB_RASTER, lab_full=True)
 
 
-def profile_frames(slam, start: int, n: int, frame_ms: float):
+def profile_frames(label, slam, start: int, n: int, frame_ms: float):
     """`torch.profiler` over frames [start, start + n) of the run, after its
     timed window: each K kernel's device ms per frame, the device's summed
     kernel time per frame and its idle share, of the profiled wall time (the
     profiler slows the host) and of `frame_ms`, the unprofiled frame time
-    of the timed window. None where the trace holds no device time."""
+    of the timed window, and the host's blocking reads of the device
+    (HOST_WAIT_CALLS) per frame. None where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -590,10 +616,15 @@ def profile_frames(slam, start: int, n: int, frame_ms: float):
     if busy_ms <= 0.0:
         print("profile: the trace holds no device time (not measured)", flush=True)
         return None
+    # the host's reads of device values: CUDA runtime calls that block until
+    # the device has drained its queue (under the profiler's slower host)
+    waits = [e for e in prof.key_averages() if e.key in HOST_WAIT_CALLS]
     out = {
         "frames": [start, start + n],
         "kernel_ms_per_frame": {k: sum(e.self_device_time_total for e in rows if pat in e.key)
                                 / 1e3 / n for k, pat in PROFILE_NAMES.items()},
+        "host_wait_per_frame": {e.key: {"calls": e.count / n, "ms": e.cpu_time_total / 1e3 / n}
+                                for e in waits},
         "device_ms_per_frame": busy_ms,
         "profiled_wall_ms_per_frame": wall_ms,
         "idle_share_profiled": 1.0 - busy_ms / wall_ms,
@@ -602,7 +633,7 @@ def profile_frames(slam, start: int, n: int, frame_ms: float):
         "top": [(e.key[:80], e.self_device_time_total / 1e3 / n)
                 for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]],
     }
-    print("mono profile: " + json.dumps(out), flush=True)
+    print(f"{label} profile: " + json.dumps(out), flush=True)
     return out
 
 
@@ -647,16 +678,211 @@ def mono_phase(config, dev):
             fail(f"kernel {name} was not launched in the monocular run")
     start = info["warm_frames"] + bench_torch.N_MEAS
     n = min(PROFILE_FRAMES, len(slam.dataset) - start)
-    info["profile"] = profile_frames(slam, start, n, 1e3 / info["fps"]) if n > 0 else None
+    info["profile"] = profile_frames("mono", slam, start, n, 1e3 / info["fps"]) if n > 0 else None
     return info, snapshot[0], slam.intr, slam.raster_cfg, slam.step_cfg.mapping_rebin_dilation
 
 
+class TrackRecorder:
+    """Stands in for the frontend's Adam tracker (`core/frontend.py`'s
+    `track_frame`): records each frame's iteration count and convergence,
+    and the inputs of frame `keep` (for `gradient_check`)."""
+
+    def __init__(self, frontend, keep: int):
+        from monogs_dev_tpu_torch.core import tracking
+
+        self.track_frame = tracking.track_frame
+        self.frontend, self.keep = frontend, keep
+        self.iters, self.converged, self.inputs = {}, {}, None
+
+    def __call__(self, *args, **kwargs):
+        idx = self.frontend.cur_frame_idx
+        if idx == self.keep:
+            self.inputs = (args, kwargs)
+        res = self.track_frame(*args, **kwargs)
+        self.iters[idx], self.converged[idx] = res.n_iters, res.converged
+        return res
+
+
+def gradient_check(inputs):
+    """The Adam tracker's first iteration on one frame of the run (its map,
+    start pose, image and real edge mask): loss and (tau, exposure) gradient
+    through K1/K2 against the same through the plain blend on the card."""
+    import torch
+
+    from monogs_dev_tpu_torch.core import tracking as tt
+    from monogs_dev_tpu_torch.ops import rasterize as R
+    from monogs_dev_tpu_torch.ops.blend import blend_tiles_reference
+    from monogs_dev_tpu_torch.utils.losses import compute_grad_mask
+
+    (params, active, T_init, exp0, image, depth, _, bg, cfg, intr, rcfg), kw = inputs
+    dev = image.device
+    T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
+    mask = compute_grad_mask(image, cfg.edge_threshold, cfg.per_block_mask)
+    tile_mask = tt.tile_mask_of(mask, intr, rcfg)
+    with torch.no_grad():
+        proj = R.project_gaussians(params, active, T, intr, cfg.sh_degree)
+        binning = R.build_binning(proj, intr, rcfg, dilate=cfg.rebin_dilation)
+    args = (T, torch.as_tensor(exp0, dtype=torch.float32, device=dev), params, active, binning,
+            image, depth, mask, tile_mask, bg, cfg, intr, rcfg, kw["use_depth"])
+    loss_k, g_k = tt.pose_gradient(*args)
+    kernel_blend = R.blend_tiles
+    R.blend_tiles = lambda *a: blend_tiles_reference(*a)[:3]
+    try:
+        loss_p, g_p = tt.pose_gradient(*args)
+    finally:
+        R.blend_tiles = kernel_blend
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    g_err = float((g_k - g_p).abs().max())
+    g_max = float(g_p.abs().max())
+    out = {"tiles_blended": int(tile_mask.sum()), "tiles": int(tile_mask.numel()),
+           "loss_kernels": loss_k, "loss_plain": loss_p, "grad_kernels": g_k.tolist(),
+           "grad_plain": g_p.tolist(), "grad_max_abs_err": g_err, "grad_max_abs": g_max}
+    print("parity gradient check: " + json.dumps(out), flush=True)
+    if not (tile_mask.any() and not tile_mask.all()):
+        fail("parity gradient check: the edge mask leaves no tile masked out (or none in)")
+    if not (np.isfinite(g_err) and g_err <= GRAD_CHECK_REL * g_max and g_max > 0.0):
+        fail(f"parity gradient check: max |g_kernels - g_plain| {g_err} > {GRAD_CHECK_REL} x "
+             f"max |g| {g_max}")
+    if not abs(loss_k - loss_p) <= LOSS_CHECK_REL * abs(loss_p):
+        fail(f"parity gradient check: loss {loss_k} (kernels) vs {loss_p} (plain)")
+    return out
+
+
+def parity_phase(dev):
+    """`configs/synthetic/bench_vga_parity.yaml` (RGB-D, the reference's
+    Adam tracking loop) through `SLAM`, the code path of `slam_torch.py
+    --eval`: frame 0's init mapping and frames 1..11 (frames 2..11 give the
+    tracked frames/s), then on to the first keyframe after frame 0 within
+    PARITY_BUDGET_S, then PARITY_PROFILE_FRAMES profiled frames, then
+    `SLAM.evaluate` (colour refinement, PSNR/SSIM/LPIPS before and after,
+    ATE and PLY artifacts) into a temporary directory. Returns (info, map
+    snapshots for `map_kernel_phase`)."""
+    import tempfile
+
+    import torch
+
+    from monogs_dev_tpu_torch.core import frontend as frontend_mod
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.eval.ate import ate_rmse
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    config = load_config(PARITY_CONFIG)
+    save_dir = tempfile.mkdtemp(prefix="parity_eval_")
+    slam = SLAM(config, dev, seed=0, save_dir=save_dir)
+    fe = slam.frontend
+    for i in range(min(MAX_FRAMES + PARITY_PROFILE_FRAMES, len(slam.dataset))):
+        slam.dataset.render_frame(i)  # outside the counted run
+    recorder = TrackRecorder(fe, PARITY_GRAD_FRAME)
+    frontend_mod.track_frame = recorder
+    try:
+        torch.cuda.synchronize()
+        B.reset_launch_counts()
+        t0 = time.time()
+        slam.run(max_frames=1)  # frame 0 and its init mapping
+        slam.run(max_frames=2)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        slam.run(max_frames=N_FRAMES)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        n = N_FRAMES
+        while len(fe.kf_indices) < 2 and n < MAX_FRAMES and time.time() - t0 < PARITY_BUDGET_S:
+            n += 1
+            slam.run(max_frames=n)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        reached_keyframe = len(fe.kf_indices) > 1  # before the profiled frames
+        frame_ms = 1e3 * (t2 - t1) / (N_FRAMES - 2)
+        profile = profile_frames("parity", slam, n, PARITY_PROFILE_FRAMES, frame_ms)
+    finally:
+        frontend_mod.track_frame = recorder.track_frame
+    # the map after its first keyframe's mapping (the post-init map is the
+    # RGB-D slice's: the same config up to the tracker)
+    snapshots = ([snapshot_map(slam, fe.kf_indices[-1], "parity end map")]
+                 if reached_keyframe else [])
+    frames = sorted(fe.cameras)
+    if not all(np.isfinite(fe.cameras[i].T_est).all() for i in frames):
+        fail("non-finite pose in the parity run")
+    ate = slam.keyframe_ate()
+    ate_all = ate_rmse([fe.cameras[i].T_est for i in frames], [fe.cameras[i].T_gt for i in frames])
+    iters = [recorder.iters[i] for i in sorted(recorder.iters) if i < n]  # the counted run
+    info = {
+        "frames_run": n,
+        "reached_keyframe": reached_keyframe,
+        "init_and_first_frame_s": t1 - t0,
+        "tracked_fps": (N_FRAMES - 2) / (t2 - t1),
+        "frames_12_on_s": t3 - t2,
+        "adam_iters_mean": float(np.mean(iters)),
+        "adam_iters_max": int(max(iters)),
+        "frames_tracked": len(iters),
+        "frames_converged": int(sum(recorder.converged[i] for i in recorder.converged if i < n)),
+        "launches": launches,
+        "k2_launches_per_tracked_frame": launches["K2"] / len(iters),
+        "keyframes": list(fe.kf_indices),
+        "alive": slam.n_alive(),
+        "keyframe_ate_cm": 100.0 * ate,
+        "all_frame_ate_cm": 100.0 * ate_all,
+        "timers": slam.timers.summary(),
+        "telemetry": slam.engine.telemetry,
+        "profile": profile,
+    }
+    print("parity: " + json.dumps(info), flush=True)
+    if not info["reached_keyframe"]:
+        print(f"parity: no keyframe after frame 0 by frame {n} ({PARITY_BUDGET_S} s budget); "
+              f"the run stopped there", flush=True)
+    for name, v in (("keyframe", ate), ("all-frame", ate_all)):
+        if not (np.isfinite(v) and v < RGBD_ATE_BAR):
+            fail(f"parity {name} ATE {v} m is not finite and under {RGBD_ATE_BAR} m")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the parity run")
+
+    info["gradient_check"] = gradient_check(recorder.inputs)
+    if info["reached_keyframe"]:
+        tier_phase(slam)
+    else:
+        print("tiers: not checked (the map before the first keyframe fills no smaller tier)",
+              flush=True)
+
+    B.reset_launch_counts()
+    t4 = time.time()
+    results = slam.evaluate()
+    torch.cuda.synchronize()
+    info["eval_s"] = time.time() - t4
+    info["eval_launches"] = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    slam.stop()
+    info["eval"] = results
+    for tag in ("before_opt", "after_opt"):
+        r = results[tag]
+        print(f"parity eval {tag}: PSNR {r['mean_psnr']:.4f} dB, SSIM {r['mean_ssim']:.5f}, "
+              f"LPIPS {r.get('mean_lpips_noncanonical', r['mean_lpips'])} "
+              f"({r['lpips_backend']}) over {r['n_frames']} frames", flush=True)
+        if not (np.isfinite(r["mean_psnr"]) and np.isfinite(r["mean_ssim"]) and r["n_frames"]):
+            fail(f"parity eval {tag}: PSNR/SSIM not finite or no frame rendered")
+    for rel in ("trj_final.json", "plot/stats_final.json", "psnr/before_opt/final_result.json",
+                "psnr/after_opt/final_result.json", "point_cloud/final/point_cloud.ply",
+                "metrics.jsonl"):
+        if not os.path.exists(os.path.join(save_dir, rel)):
+            fail(f"parity eval did not write {rel}")
+    shutil.rmtree(save_dir)
+    info["phase_s"] = time.time() - t_phase
+    print(f"parity: tracked frames/s {info['tracked_fps']:.4f}; Adam iterations a frame mean "
+          f"{info['adam_iters_mean']:.2f}, max {info['adam_iters_max']}, converged "
+          f"{info['frames_converged']} of {info['frames_tracked']}; launches {launches} "
+          f"(eval {info['eval_launches']}); keyframe ATE {info['keyframe_ate_cm']:.4f} cm, "
+          f"all-frame ATE {info['all_frame_ate_cm']:.4f} cm; eval {info['eval_s']:.1f} s; "
+          f"phase {info['phase_s']:.1f} s", flush=True)
+    return info, snapshots
+
+
 def slice_phase(config, dev):
-    """Frames 0..11 give the tracked frames/s; the run then goes on to the
-    first keyframe after frame 0 (its insertion, kNN, windowed mapping and
-    harvest) and tracks AFTER_KF frames against the grown map. Copies of
-    the map after the init mapping and at the end are returned for
-    `map_kernel_phase`."""
+    """Frames 0..11: the init mapping and the tracked frames/s (frames
+    2..11). The keyframe path past frame 11 (insertion, kNN, windowed
+    mapping, harvest) runs in the parity phase, RGB-D too. A copy of the
+    map after the init mapping is returned for `map_kernel_phase`."""
     import torch
 
     from monogs_dev_tpu_torch.core.system import SLAM
@@ -675,33 +901,17 @@ def slice_phase(config, dev):
     slam.run(max_frames=N_FRAMES)
     torch.cuda.synchronize()
     t2 = time.time()
-    launches_12 = dict(B.LAUNCHES)
-    n = N_FRAMES
-    while len(fe.kf_indices) < 2 and n < MAX_FRAMES:
-        n += 1
-        slam.run(max_frames=n)  # each run ends by pumping the keyframe it sent
-    if len(fe.kf_indices) < 2:
-        fail(f"no keyframe after frame 0 within {MAX_FRAMES} frames")
-    n += AFTER_KF
-    slam.run(max_frames=n)
-    torch.cuda.synchronize()
-    t3 = time.time()
-    launches = dict(B.LAUNCHES)
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
     slam.stop()
-    snapshots.append(snapshot_map(slam, fe.kf_indices[-1], "RGB-D end map"))
-    ate = slam.keyframe_ate()
     frames = sorted(fe.cameras)
     ate_all = ate_rmse([fe.cameras[i].T_est for i in frames], [fe.cameras[i].T_gt for i in frames])
     info = {
-        "frames": n,
+        "frames": N_FRAMES,
         "init_and_first_frame_s": round(t1 - t0, 3),
         "tracked_fps": (N_FRAMES - 2) / (t2 - t1),
-        "launches_frames_0_11": launches_12,
-        "frames_12_on_s": round(t3 - t2, 3),
         "keyframes": list(fe.kf_indices),
         "alive": slam.n_alive(),
         "capacity_tier": int(slam.engine.gmap.aux.active.shape[0]),
-        "keyframe_ate_cm": 100.0 * ate,
         "all_frame_ate_cm": 100.0 * ate_all,
         "launches": launches,
         "timers": slam.timers.summary(),
@@ -710,11 +920,10 @@ def slice_phase(config, dev):
     print("slice: " + json.dumps(info), flush=True)
     if not all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras):
         fail("non-finite pose in the slice")
-    for name, v in (("keyframe", ate), ("all-frame", ate_all)):
-        if not (np.isfinite(v) and v < 0.03):
-            fail(f"{name} ATE {v} m is not finite and under 3 cm")
-    for name in ("K1", "K2", "K3"):
-        if launches_12[name] <= 0:
+    if not (np.isfinite(ate_all) and ate_all < RGBD_ATE_BAR):
+        fail(f"all-frame ATE {ate_all} m is not finite and under {RGBD_ATE_BAR} m")
+    for name, n in launches.items():
+        if n <= 0:
             fail(f"kernel {name} was not launched in frames 0..11 of the slice")
     return slam, launches, snapshots
 
@@ -741,15 +950,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(CONFIG)
     sets = {"frame 0": scene_kernel_phase(config, dev)}
-    slam, _, snapshots = slice_phase(config, dev)
+    slam, gn_launches, snapshots = slice_phase(config, dev)
     sets.update(map_kernel_phase(snapshots, slam.intr, slam.raster_cfg,
                                  slam.step_cfg.mapping_rebin_dilation))
-    tier_phase(slam)
-    lab_launches, sets["lab"] = lab_phase(dev)
     del slam
+    parity, parity_snaps = parity_phase(dev)
+    lab_launches, sets["lab"] = lab_phase(dev)
     mono, mono_snap, intr, rcfg, dilate = mono_phase(load_config(CONFIG), dev)
-    sets.update(map_kernel_phase([mono_snap], intr, rcfg, dilate))
-    profiled = mono["profile"]
+    sets.update(map_kernel_phase(parity_snaps + [mono_snap], intr, rcfg, dilate))
+    profiled = {"mono": mono["profile"], "parity": parity["profile"]}
+    paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
+             "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"]}
     ksets = {label: k for label, (k, _) in sets.items()}
     lsets = {label: lab for label, (_, lab) in sets.items()}
 
@@ -759,13 +970,15 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES["K"],
             "replaces": REPLACES[name],
-            "launches": mono["launches"][name],
+            "launches": parity["launches"][name],
+            "launches_by_path": {path: n[name] for path, n in paths.items()},
             "max_abs_err": max(res[name]["max_abs_err"] for res in ksets.values()),
             **set_times(ksets["frame 0"][name]),
             "library_ms": None,  # no single PyTorch call computes the blend
             "sets": {label: set_times(res[name]) for label, res in ksets.items()},
-            "mono_device_ms_per_frame": (profiled["kernel_ms_per_frame"][name]
-                                         if profiled else None),
+            **{f"{path}_device_ms_per_frame": (prof["kernel_ms_per_frame"][name]
+                                                if prof else None)
+               for path, prof in profiled.items()},
         }
         for name in ("K1", "K2", "K3")
     ] + [
@@ -782,7 +995,8 @@ def main() -> int:
         }
         for name, n in lab_launches.items()
     ]
-    # K1-K3: launches in the monocular run (phase 8); ms (kernel-only), ms_v1
+    # K1-K3: launches in the parity run (phase 5; every path's under
+    # launches_by_path); ms (kernel-only), ms_v1
     # (the first version's, in turns with it), wrapper_ms, plain_ms and
     # bound_ms on the bench scene's frame-0 props (phase 3), and the same for
     # every prop set under "sets". L1/L2: launches in the lab's run, the same

@@ -88,6 +88,7 @@ class BackendEngine:
         self.window_size = int(training["window_size"])
         self.pose_window = int(training["pose_window"])
         self.prune_mode = training.get("prune_mode", "slam")
+        self.refinement_itr_num = int(training.get("refinement_itr_num", 26000))
 
         ds = config["Dataset"]
         self.pcd_downsample = int(ds.get("pcd_downsample", 64))
@@ -469,15 +470,24 @@ class BackendEngine:
         # map(iter_per_kf) followed by one more iteration with the prune
         self.map(iters=iter_per_kf + 1, prune=True, frames_to_optimize=frames_to_optimize)
 
+    def color_refinement(self) -> None:
+        """Photometric-only refinement of the map over the keyframes, for
+        `Training.refinement_itr_num` iterations."""
+        from .refinement import run_color_refinement
+
+        self.gmap, self.iteration_count = run_color_refinement(
+            self, iterations=self.refinement_itr_num)
+
     def keyframe_poses(self) -> Dict[int, np.ndarray]:
         return {idx: np.asarray(kf.T_w2c) for idx, kf in self.viewpoints.items()}
 
 
 class _BackendProtocol:
-    """The reference message protocol (init/keyframe/pause/unpause/stop)
-    over a backend_queue/frontend_queue pair, with its idle cadence: one
-    background mapping round per idle pass, and a 10-iteration prune pass
-    plus a frontend sync every 10 un-synced iterations."""
+    """The reference message protocol (init/keyframe/color_refinement/
+    pause/unpause/stop) over a backend_queue/frontend_queue pair, with its
+    idle cadence: one background mapping round per idle pass, and a
+    10-iteration prune pass plus a frontend sync every 10 un-synced
+    iterations."""
 
     engine: BackendEngine
     single_thread: bool
@@ -518,6 +528,9 @@ class _BackendProtocol:
             self.pause = True
         elif tag == "unpause":
             self.pause = False
+        elif tag == "color_refinement":
+            e.color_refinement()
+            self.push_to_frontend()
         elif tag == "init":
             _, frame_idx, kf, depth_map = data
             e.handle_init(frame_idx, kf, depth_map)

@@ -1,8 +1,9 @@
 """Tracking frontend: per-frame loop, keyframe policy, window management
-(port of `monogs_dev_tpu/core/frontend.py`, Gauss-Newton tracking, RGB-D
-and monocular).
+(port of `monogs_dev_tpu/core/frontend.py`, RGB-D and monocular).
 
-Tracking runs on the device (core/tracking_gn.py); the keyframe policy and
+Tracking runs on the device with the solver `Training.tracking_solver`
+names: Adam through the rasterizer (core/tracking.py, the default) or
+Gauss-Newton (core/tracking_gn.py); the keyframe policy and
 window bookkeeping stay host-side numpy, as in the reference. A monocular
 run bootstraps from a noisy depth sheet, inserts keyframes with pseudo-depth
 from the render, and counts as initialized once the window is full; a
@@ -26,7 +27,7 @@ from .backend import BackendEngine
 from .insertion import mono_bootstrap_depth, pseudo_depth_map
 from .keyframe import Keyframe
 from .params import StepConfig
-from .tracking import TrackResult
+from .tracking import TrackResult, track_frame
 from .tracking_gn import track_frame_gn
 
 
@@ -99,10 +100,6 @@ class FrontEnd:
     def __init__(self, config, dataset, engine: BackendEngine, step_cfg: StepConfig,
                  intr: Intrinsics, raster_cfg: RasterConfig, backend_thread=None,
                  seed: int = 1):
-        if step_cfg.tracking_solver != "gn":
-            raise NotImplementedError(
-                "only the Gauss-Newton tracker (Training.tracking_solver: gn) is ported"
-            )
         self.config = config
         self.dataset = dataset
         self.engine = engine
@@ -308,7 +305,8 @@ class FrontEnd:
             depth = self._zero_depth
         self._compact_m = self._choose_compact(tier)
         cfg = dataclasses.replace(self.cfg, track_compact=self._compact_m)
-        result = track_frame_gn(
+        track_fn = track_frame_gn if cfg.tracking_solver == "gn" else track_frame
+        result = track_fn(
             params, active, np.asarray(T_init, np.float32), np.zeros(2, np.float32),
             image, depth, None, self.bg_color, cfg, self.intr, self.track_raster_cfg,
             use_depth=use_depth,

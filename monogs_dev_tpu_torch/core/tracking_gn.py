@@ -20,10 +20,10 @@ from ..geometry.lie import se3_exp
 from ..models.camera import Intrinsics
 from ..ops.project import project_gaussians
 from ..ops.raster_types import RasterConfig
-from ..ops.rasterize import build_binning, compact_binning, render_binned, render_tiled, tile_wh
+from ..ops.rasterize import build_binning, compact_binning, render_binned, render_tiled
 from ..utils.losses import compute_grad_mask, image_gradient, median_depth, tracking_loss
 from .params import StepConfig
-from .tracking import TrackResult, _halve_depth, _halve_image, _halve_mask, _scale_intrinsics
+from .tracking import TrackResult, pyramid_levels, tile_mask_of
 
 _HUBER_RGB = 0.05
 _HUBER_DEPTH = 0.05
@@ -49,12 +49,7 @@ class GNLevel:
 
 def make_level(image, depth, mask, intr: Intrinsics, max_iters: int,
                cfg: StepConfig, raster_cfg: RasterConfig) -> GNLevel:
-    tw, th = tile_wh(raster_cfg)
-    tx_n = -(-intr.width // tw)
-    ty_n = -(-intr.height // th)
-    m_pad = torch.zeros((ty_n * th, tx_n * tw), dtype=torch.bool, device=image.device)
-    m_pad[: intr.height, : intr.width] = mask
-    tile_mask = m_pad.reshape(ty_n, th, tx_n, tw).any(dim=3).any(dim=1).reshape(-1)
+    tile_mask = tile_mask_of(mask, intr, raster_cfg)
     gx_obs, gy_obs = image_gradient(image)
     vv, uu = torch.meshgrid(
         torch.arange(intr.height, dtype=torch.float32, device=image.device),
@@ -150,21 +145,7 @@ def track_frame_gn(params, active, T_init, exposure_init, image, depth_gt, grad_
     opt_exposure = cfg.exposure_lr > 0.0
     n = active.shape[0]
 
-    if cfg.pyramid_levels > 0:
-        div = 1 << cfg.pyramid_levels
-        if intr.height % div or intr.width % div:
-            raise ValueError(
-                f"tracking_pyramid_levels={cfg.pyramid_levels} requires image "
-                f"dims divisible by {div}, got {intr.height}x{intr.width}"
-            )
-    raw_levels = [(image, depth_gt, grad_mask, intr, cfg.tracking_max_iters)]
-    img_l, dep_l, msk_l = image, depth_gt, grad_mask
-    for k in range(1, cfg.pyramid_levels + 1):
-        img_l, dep_l, msk_l = _halve_image(img_l), _halve_depth(dep_l), _halve_mask(msk_l)
-        raw_levels.append((img_l, dep_l, msk_l, _scale_intrinsics(intr, k),
-                           cfg.pyramid_coarse_iters))
-    raw_levels.reverse()
-
+    raw_levels = pyramid_levels(image, depth_gt, grad_mask, intr, cfg)
     T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
     ab = torch.as_tensor(exposure_init, dtype=torch.float32, device=dev)
     best_T, best_ab = T, ab

@@ -1,5 +1,5 @@
-"""Losses and image operators on channel-last (H, W, C) tensors (port of
-`monogs_dev_tpu/utils/losses.py`, the parts tracking and mapping use).
+"""Losses, metrics and image operators on channel-last (H, W, C) tensors
+(port of `monogs_dev_tpu/utils/losses.py`).
 
 Masked reductions are sum(x*m)/sum(m), as in the JAX package. The depthwise
 filters run as fp32 `conv2d` with zero SAME padding; TF32 is switched off by
@@ -23,6 +23,42 @@ def _filter2d_same(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
     w = kernel.to(img.dtype).expand(c, 1, kh, kw)
     return F.conv2d(x, w, groups=c)[0].permute(1, 2, 0)
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x - y).abs().mean()
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """PSNR; with a mask, the MSE is averaged over masked pixels only."""
+    se = (img1 - img2) ** 2
+    if mask is None:
+        mse = se.mean()
+    else:
+        mse = _masked_mean(se, mask)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp(mse, min=1e-12)))
+
+
+def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
+    x = torch.arange(size, dtype=torch.float32, device=device) - size // 2
+    g = torch.exp(-(x ** 2) / (2.0 * sigma ** 2))
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """SSIM with an 11x11 sigma-1.5 Gaussian window, mean over the image."""
+    w = _gaussian_window(11, 1.5, img1.device)
+    mu1 = _filter2d_same(img1, w)
+    mu2 = _filter2d_same(img2, w)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = _filter2d_same(img1 * img1, w) - mu1_sq
+    sigma2_sq = _filter2d_same(img2 * img2, w) - mu2_sq
+    sigma12 = _filter2d_same(img1 * img2, w) - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return ssim_map.mean()
 
 
 def image_gradient(image: torch.Tensor):

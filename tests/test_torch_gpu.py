@@ -308,3 +308,94 @@ def test_lab_launchers_time_the_kernels_alone(cuda):
         torch.cuda.synchronize()
         assert torch.equal(first, d_props) and float(d_props.abs().max()) > 0
     assert (dict(B.LAUNCHES), dict(BL.VARIANT_LAUNCHES)) == before
+
+
+@pytest.mark.gpu
+def test_backward_kernel_zero_for_masked_tiles(cuda):
+    """A tile mask zeroes tiles' counts (ops/rasterize.py::render_binned):
+    K2 must return zero d_props for every entry of such a tile, and for the
+    entries past each tile's count, whatever their props hold."""
+    props, counts = _case_props("l128", seed=3)
+    counts[::3] = 0
+    c = torch.tensor(counts, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
+    p = torch.tensor(props, device=cuda, requires_grad=True)
+    out = B.blend_tiles(p, c, TX_N, 16, *CFG)
+    sum((o * wi).sum() for o, wi in zip(out, w)).backward()
+    past = torch.arange(p.shape[1], device=cuda)[None, :] >= c[:, None]
+    assert bool((p.grad[past] == 0.0).all())
+    assert bool((p.grad[torch.tensor(counts == 0, device=cuda)] == 0.0).all())
+    assert float(p.grad[~past].abs().max()) > 0.0
+    assert bool((out[2][torch.tensor(counts == 0, device=cuda)] == 0.0).all())
+
+
+def _tracking_scene(dev):
+    rng = np.random.default_rng(4)
+    n = 1500
+    q = rng.normal(size=(n, 4))
+    # blobs on the left of the view only: the edge mask leaves the empty
+    # tiles on the right out of the blend
+    arrays = dict(
+        xyz=np.stack([rng.uniform(-1.5, 0.3, n), rng.uniform(-1, 1, n), rng.uniform(2, 5, n)], -1),
+        f_dc=rng.uniform(-1, 1, (n, 1, 3)), f_rest=np.zeros((n, 0, 3)),
+        log_scales=np.log(rng.uniform(0.02, 0.08, (n, 3))),
+        quats=q / np.linalg.norm(q, axis=-1, keepdims=True), opacity_logit=rng.uniform(0, 3, n))
+    return GaussianParams(**{k: torch.tensor(v, dtype=torch.float32, device=dev)
+                             for k, v in arrays.items()})
+
+
+@pytest.mark.gpu
+def test_tracking_gradient_kernels_match_plain_blend(cuda, monkeypatch):
+    """The Adam tracker's first-iteration loss and (tau, exposure) gradient
+    at 160x128 with the real edge mask (some tiles masked): through K1/K2
+    against the same through the plain blend on the card, gradient within
+    1e-3 x max|g|, loss within 1e-5 relative."""
+    from monogs_dev_tpu_torch.core import tracking as tt
+    from monogs_dev_tpu_torch.core.params import StepConfig
+    from monogs_dev_tpu_torch.ops import rasterize as R
+    from monogs_dev_tpu_torch.utils.losses import compute_grad_mask
+
+    intr = Intrinsics(140.0, 140.0, 80.0, 64.0, 160, 128)
+    rcfg = RasterConfig(max_per_tile=256, k_dup=16, tile_group=16)
+    cfg = StepConfig(alpha=0.9)
+    params = _tracking_scene(cuda)
+    active = torch.ones(params.xyz.shape[0], dtype=torch.bool, device=cuda)
+    with torch.no_grad():
+        gt = render_tiled(params, active, torch.eye(4, device=cuda), intr, 0, config=rcfg,
+                          need_touched=False)
+    image = torch.clamp(gt.color, 0.0, 1.0)
+    depth = torch.where(gt.alpha < 0.5, torch.zeros_like(gt.depth), gt.depth / gt.alpha)
+    T = torch.eye(4, device=cuda)
+    T[:3, 3] = torch.tensor([0.01, -0.008, 0.012], device=cuda)
+    mask = compute_grad_mask(image, cfg.edge_threshold, False)
+    tile_mask = tt.tile_mask_of(mask, intr, rcfg)
+    assert 0 < int(tile_mask.sum()) < tile_mask.numel()
+    with torch.no_grad():
+        proj = R.project_gaussians(params, active, T, intr, 0)
+        binning = R.build_binning(proj, intr, rcfg, dilate=cfg.rebin_dilation)
+    args = (T, torch.zeros(2, device=cuda), params, active, binning, image, depth, mask,
+            tile_mask, torch.zeros(3, device=cuda), cfg, intr, rcfg, True)
+    before = B.LAUNCHES["K2"]
+    loss_k, g_k = tt.pose_gradient(*args)
+    assert B.LAUNCHES["K2"] > before
+    monkeypatch.setattr(R, "blend_tiles", lambda *a: B.blend_tiles_reference(*a)[:3])
+    loss_p, g_p = tt.pose_gradient(*args)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    assert float((g_k - g_p).abs().max()) <= 1e-3 * float(g_p.abs().max())
+    assert float(g_p[:6].abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+def test_ssim_and_lpips_on_card_match_cpu(cuda):
+    from monogs_dev_tpu_torch.eval.lpips import lpips
+    from monogs_dev_tpu_torch.utils.losses import psnr, ssim
+
+    rng = np.random.default_rng(5)
+    a = rng.uniform(size=(120, 160, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    ta, tb = torch.tensor(a), torch.tensor(b)
+    ca, cb = ta.to(cuda), tb.to(cuda)
+    assert abs(float(ssim(ca, cb)) - float(ssim(ta, tb))) <= 1e-6
+    assert abs(float(psnr(ca, cb)) - float(psnr(ta, tb))) <= 1e-5
+    assert abs(lpips(ca, cb) - lpips(ta, tb)) <= 1e-5 * lpips(ta, tb)
