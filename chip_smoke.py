@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. device: the card's name and power limit (fails without a CUDA device);
-2. build: compiles the blend kernels (monogs_dev_tpu_torch/csrc) with nvcc;
+2. build: compiles the blend kernels (monogs_dev_tpu_torch/csrc) with nvcc,
+   and the PNG unfilter (csrc/png_unfilter.c) with the host C compiler;
 3. kernels: K1, K3 and K2 at the bench shapes (VGA, 16x16 tiles, L = 512),
    on props from the port's projection, binning and gather of the bench
    scene at frame 0, each held against its plain torch version on the card
@@ -21,14 +22,11 @@
 5. parity: `configs/synthetic/bench_vga_parity.yaml` (RGB-D, the
    reference's Adam tracking loop: the pose gradient through K1/K2 at every
    iteration) through `SLAM`, the code path of `slam_torch.py --eval`:
-   frames 0..11 for the tracked frames/s, on to the first keyframe after
-   frame 0 within PARITY_BUDGET_S (else it stops and says so), the Adam
-   iterations a frame, the launch counts and the ATE; PARITY_PROFILE_FRAMES
-   profiled frames; the first iteration's loss and gradient at one frame of
-   the run, kernels against the plain blend (`gradient_check`); the map
-   tiers (`tier_phase`: the map after the first keyframe compacted to a
-   smaller tier and grown back, against the same steps on the CPU and
-   against its full render); then
+   frames 0..11 for the tracked frames/s, the Adam iterations a frame, the
+   launch counts and the ATE (the Adam loop on to a keyframe runs in the
+   ingest phase, on fr3_office's config); PARITY_PROFILE_FRAMES profiled
+   frames; the first iteration's loss and gradient at one frame of the run,
+   kernels against the plain blend (`gradient_check`); then
    `SLAM.evaluate` (colour refinement, PSNR/SSIM/LPIPS before and after,
    the ATE, PSNR-json and PLY artifacts in a temporary directory);
 6. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
@@ -45,8 +43,23 @@
    then PROFILE_FRAMES more frames under `torch.profiler` (each K kernel's
    device ms per frame, the device's idle share);
 8. map kernels: phase 3 again on the maps after the RGB-D init mapping,
-   after the parity run's first keyframe, and at the monocular
-   initialization, binned as the mapping loop bins them.
+   at the monocular initialization and after the ingest run's first
+   keyframe (L = 1024), binned as the mapping loop bins them;
+9. ingest (`ingest_phase`): writes a TUM-layout sequence of the bench
+   scene along bench_vga's orbit
+   at fr3_office's calibration (640x480, 16-bit depth at scale 5000) and
+   runs `configs/rgbd/tum/fr3_office.yaml` on it through the TUM loader, as
+   committed but for `dataset_path` and `save_results`: frames 0..11 for
+   the tracked frames/s, then on to the first keyframe after frame 0
+   within INGEST_BUDGET_S; the map tiers (`tier_phase`: that map compacted
+   to a smaller tier and grown back, against the same steps on the CPU and
+   against its full render); saves a checkpoint right after that keyframe's
+   mapping, checks `load_map` of it against the map bit for bit, resumes
+   it in a fresh `SLAM` and runs RESUME_FRAMES more frames (the `tum:`
+   line); then writes a EuRoC-layout stereo sequence (320x240, 24 frames)
+   and runs the EuRoC base config on it through the rectification and the
+   matcher (the `euroc:` line). Both fetch a few frames again under torch's
+   sync debug mode set to raise (`assert_loader_never_waits`).
 
 The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
@@ -74,7 +87,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga.yaml")
 PARITY_CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga_parity.yaml")
 N_FRAMES = 12  # frames 2..11 give the tracked frames/s
-MAX_FRAMES = 96  # the parity run's first keyframe after frame 0 by then
 TOL = {"color": 3e-5, "alpha": 3e-5, "depth": 3e-4}
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5  # atol: fp32 sums of ~256 pixel terms in another order
 # L2's absolute floor, relative to the largest gradient (as tests/test_torch_gpu.py
@@ -95,21 +107,32 @@ REPLACES = {
 # each burst queued behind ~1 ms of device sleep
 ROUNDS, BURST, SLEEP_CYCLES = 21, 20, 2_000_000
 # monocular frames profiled after the timed window, fewer where the sequence
-# ends first (20 until the parity phase took their time)
-PROFILE_FRAMES = 8
+# ends first (20 until the parity phase took their time, 8 until the ingest's)
+PROFILE_FRAMES = 4
 # profiler kernel names of K1-K3
 PROFILE_NAMES = {"K1": "blend_fwd_kernel_v2<false>", "K3": "blend_fwd_kernel_v2<true>",
                  "K2": "blend_bwd_kernel_v2"}
-# parity phase: the run goes on past frame 11 to the first keyframe after
-# frame 0 while its wall time stays under PARITY_BUDGET_S; the Adam tracker's
-# first iteration at PARITY_GRAD_FRAME is checked kernels against the plain
-# blend (gradient within GRAD_CHECK_REL x max|g|, loss within LOSS_CHECK_REL
-# relative); PARITY_PROFILE_FRAMES more frames are profiled
-PARITY_BUDGET_S = 200.0
+# parity phase: frames 0..11 (until the ingest phase's fr3_office run took
+# the Adam loop on to a keyframe, the run went on to frame 45); the Adam
+# tracker's first iteration at PARITY_GRAD_FRAME is checked kernels against
+# the plain blend (gradient within GRAD_CHECK_REL x max|g|, loss within
+# LOSS_CHECK_REL relative); PARITY_PROFILE_FRAMES more frames are profiled
 PARITY_GRAD_FRAME = 6
 GRAD_CHECK_REL, LOSS_CHECK_REL = 1e-3, 1e-5
-PARITY_PROFILE_FRAMES = 2
+PARITY_PROFILE_FRAMES = 1
 RGBD_ATE_BAR = 0.03  # PERF.md section 2
+# ingest phase: the TUM-layout sequence (INGEST_FRAMES frames of the bench
+# scene along bench_vga's orbit at fr3_office's calibration), the run's wall
+# budget to its first keyframe after frame 0, the frames run after the
+# resume; the EuRoC-layout stereo sequence (tools/run_fixture_evals.py's rig)
+TUM_CONFIG = os.path.join(REPO, "configs", "rgbd", "tum", "fr3_office.yaml")
+EUROC_CONFIG = os.path.join(REPO, "configs", "stereo", "euroc", "base_config.yaml")
+INGEST_FRAMES = 64
+INGEST_BUDGET_S = 200.0
+RESUME_FRAMES = 8
+EUROC_FRAMES, EUROC_SIZE = 24, (320, 240)
+EUROC_TPU = {"capacity": 32768, "max_per_tile": 512, "k_dup": 8}
+STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
 # copies of the stop tests' values, synchronizations)
 HOST_WAIT_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize")
@@ -369,8 +392,8 @@ def snapshot_map(slam, kf, name):
 def map_kernel_phase(snapshots, intr, rcfg, dilate):
     """The kernels on mapped maps, binned as the mapping loop bins them
     (tiles dilated by `mapping_rebin_dilation`): the density the mapping
-    renders blend. L2 is held to autograd on every map but the end maps of
-    the RGB-D and parity runs. Returns {label: check_set's results}."""
+    renders blend. L2 is held to autograd on every map but the TUM run's
+    end map. Returns {label: check_set's results}."""
     from monogs_dev_tpu_torch.ops.rasterize import grid_dims, tile_wh
     from monogs_dev_tpu_torch.tools.kernel_lab import tile_props
 
@@ -390,8 +413,8 @@ def _map_fields(gmap):
 
 
 def tier_phase(slam):
-    """The map tiers on the card. The parity run's window never fills, so
-    it neither compacts nor grows the map; this compacts its map after the
+    """The map tiers on the card. The TUM run's window never fills, so it
+    neither compacts nor grows the map; this compacts its map after the
     first keyframe's mapping and prune to the smallest power-of-two tier
     that holds its alive rows and grows it back (`compact_map`,
     `resize_map`, as `BackendEngine`'s tiers call them). Every field must
@@ -606,19 +629,22 @@ def profile_frames(label, slam, start: int, n: int, frame_ms: float):
 
     torch.cuda.synchronize()
     t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the CUDA activity alone (the kernels, copies and runtime calls): the
+    # aten ops' records would double the profiled host time and the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         slam.frontend.run(max_frames=start + n)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.time() - t0) / n
-    # kernel rows only: the aten rows carry the same device time again
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # the device's rows (the runtime calls are host rows)
+    rows = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
     if busy_ms <= 0.0:
         print("profile: the trace holds no device time (not measured)", flush=True)
         return None
     # the host's reads of device values: CUDA runtime calls that block until
     # the device has drained its queue (under the profiler's slower host)
-    waits = [e for e in prof.key_averages() if e.key in HOST_WAIT_CALLS]
+    waits = [e for e in averages if e.key in HOST_WAIT_CALLS]
     out = {
         "frames": [start, start + n],
         "kernel_ms_per_frame": {k: sum(e.self_device_time_total for e in rows if pat in e.key)
@@ -752,11 +778,9 @@ def parity_phase(dev):
     """`configs/synthetic/bench_vga_parity.yaml` (RGB-D, the reference's
     Adam tracking loop) through `SLAM`, the code path of `slam_torch.py
     --eval`: frame 0's init mapping and frames 1..11 (frames 2..11 give the
-    tracked frames/s), then on to the first keyframe after frame 0 within
-    PARITY_BUDGET_S, then PARITY_PROFILE_FRAMES profiled frames, then
+    tracked frames/s), then PARITY_PROFILE_FRAMES profiled frames, then
     `SLAM.evaluate` (colour refinement, PSNR/SSIM/LPIPS before and after,
-    ATE and PLY artifacts) into a temporary directory. Returns (info, map
-    snapshots for `map_kernel_phase`)."""
+    ATE and PLY artifacts) into a temporary directory. Returns its info."""
     import tempfile
 
     import torch
@@ -772,7 +796,7 @@ def parity_phase(dev):
     save_dir = tempfile.mkdtemp(prefix="parity_eval_")
     slam = SLAM(config, dev, seed=0, save_dir=save_dir)
     fe = slam.frontend
-    for i in range(min(MAX_FRAMES + PARITY_PROFILE_FRAMES, len(slam.dataset))):
+    for i in range(min(N_FRAMES + PARITY_PROFILE_FRAMES, len(slam.dataset))):
         slam.dataset.render_frame(i)  # outside the counted run
     recorder = TrackRecorder(fe, PARITY_GRAD_FRAME)
     frontend_mod.track_frame = recorder
@@ -788,21 +812,12 @@ def parity_phase(dev):
         torch.cuda.synchronize()
         t2 = time.time()
         n = N_FRAMES
-        while len(fe.kf_indices) < 2 and n < MAX_FRAMES and time.time() - t0 < PARITY_BUDGET_S:
-            n += 1
-            slam.run(max_frames=n)
-        torch.cuda.synchronize()
-        t3 = time.time()
         launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
-        reached_keyframe = len(fe.kf_indices) > 1  # before the profiled frames
         frame_ms = 1e3 * (t2 - t1) / (N_FRAMES - 2)
         profile = profile_frames("parity", slam, n, PARITY_PROFILE_FRAMES, frame_ms)
+        profile_s = time.time() - t2
     finally:
         frontend_mod.track_frame = recorder.track_frame
-    # the map after its first keyframe's mapping (the post-init map is the
-    # RGB-D slice's: the same config up to the tracker)
-    snapshots = ([snapshot_map(slam, fe.kf_indices[-1], "parity end map")]
-                 if reached_keyframe else [])
     frames = sorted(fe.cameras)
     if not all(np.isfinite(fe.cameras[i].T_est).all() for i in frames):
         fail("non-finite pose in the parity run")
@@ -811,10 +826,9 @@ def parity_phase(dev):
     iters = [recorder.iters[i] for i in sorted(recorder.iters) if i < n]  # the counted run
     info = {
         "frames_run": n,
-        "reached_keyframe": reached_keyframe,
         "init_and_first_frame_s": t1 - t0,
         "tracked_fps": (N_FRAMES - 2) / (t2 - t1),
-        "frames_12_on_s": t3 - t2,
+        "profile_s": profile_s,
         "adam_iters_mean": float(np.mean(iters)),
         "adam_iters_max": int(max(iters)),
         "frames_tracked": len(iters),
@@ -830,9 +844,6 @@ def parity_phase(dev):
         "profile": profile,
     }
     print("parity: " + json.dumps(info), flush=True)
-    if not info["reached_keyframe"]:
-        print(f"parity: no keyframe after frame 0 by frame {n} ({PARITY_BUDGET_S} s budget); "
-              f"the run stopped there", flush=True)
     for name, v in (("keyframe", ate), ("all-frame", ate_all)):
         if not (np.isfinite(v) and v < RGBD_ATE_BAR):
             fail(f"parity {name} ATE {v} m is not finite and under {RGBD_ATE_BAR} m")
@@ -841,11 +852,6 @@ def parity_phase(dev):
             fail(f"kernel {name} was not launched in the parity run")
 
     info["gradient_check"] = gradient_check(recorder.inputs)
-    if info["reached_keyframe"]:
-        tier_phase(slam)
-    else:
-        print("tiers: not checked (the map before the first keyframe fills no smaller tier)",
-              flush=True)
 
     B.reset_launch_counts()
     t4 = time.time()
@@ -875,7 +881,7 @@ def parity_phase(dev):
           f"(eval {info['eval_launches']}); keyframe ATE {info['keyframe_ate_cm']:.4f} cm, "
           f"all-frame ATE {info['all_frame_ate_cm']:.4f} cm; eval {info['eval_s']:.1f} s; "
           f"phase {info['phase_s']:.1f} s", flush=True)
-    return info, snapshots
+    return info
 
 
 def slice_phase(config, dev):
@@ -928,6 +934,295 @@ def slice_phase(config, dev):
     return slam, launches, snapshots
 
 
+def _frame_ms(timers, name):
+    entry = timers.summary().get(name)
+    return entry["mean_ms"] if entry else None
+
+
+def assert_loader_never_waits(label, frontend, frames):
+    """The frontend's frame fetch (decode into pinned memory, the copy to
+    the card, the loader's arithmetic, for stereo the rectification and the
+    matcher) under torch's sync debug mode set to raise: the host must
+    never wait for the device there."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in frames:
+            frontend._fetch_frame(i)
+    except RuntimeError as e:
+        fail(f"{label}: the frame fetch waits for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"{label}: frames {list(frames)} fetched with no host wait (sync debug mode)",
+          flush=True)
+
+
+def paeth_row_share(seq):
+    """The share of Paeth-filtered rows in a TUM-layout sequence's first
+    colour and depth PNGs."""
+    from monogs_dev_tpu_torch.data import image_io
+
+    types = []
+    for sub in ("rgb", "depth"):
+        d = os.path.join(seq, sub)
+        with open(os.path.join(d, sorted(os.listdir(d))[0]), "rb") as f:
+            info, raw = image_io.parse_png(f.read())
+        types.append(np.frombuffer(raw, np.uint8).reshape(info.height, -1)[:, 0])
+    return float(np.mean(np.concatenate(types) == 4))
+
+
+def tum_ingest(dev, tmp):
+    """(a)-(c): the TUM-layout sequence, the fr3_office run through the TUM
+    loader, the checkpoint and the resumed run. Returns (info, launches,
+    the map after the first keyframe for `map_kernel_phase`)."""
+    import torch
+
+    from monogs_dev_tpu_torch.core import frontend as frontend_mod
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+    from monogs_dev_tpu_torch.models.camera import Intrinsics
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.tools import make_fixtures as mf
+    from monogs_dev_tpu_torch.utils.checkpoint import load_map
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    config = load_config(TUM_CONFIG)
+    cal = config["Dataset"]["Calibration"]
+    intr = Intrinsics(fx=float(cal["fx"]), fy=float(cal["fy"]), cx=float(cal["cx"]),
+                      cy=float(cal["cy"]), width=int(cal["width"]), height=int(cal["height"]))
+    seq = os.path.join(tmp, "tum_vga")
+    t0 = time.time()
+    params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n8000.npz"), dev)
+    mf.write_tum(seq, params, active, intr,
+                 mf.orbit(INGEST_FRAMES, n=192, sweep=0.45, ease=True, profile="ease_in"),
+                 depth_scale=float(cal["depth_scale"]))
+    torch.cuda.synchronize()
+    write_s = time.time() - t0
+    del params, active
+    paeth = paeth_row_share(seq)
+    if paeth < 1.0:  # the reader's costly branch, as on PIL-written and TUM's files
+        fail(f"tum: only {paeth} of the sequence's PNG rows are Paeth-filtered")
+    config["Dataset"]["dataset_path"] = seq
+    config["Results"]["save_results"] = False
+
+    slam = SLAM(config, dev, seed=0)
+    fe = slam.frontend
+    recorder = TrackRecorder(fe, -1)
+    frontend_mod.track_frame = recorder
+    try:
+        torch.cuda.synchronize()
+        B.reset_launch_counts()
+        t0 = time.time()
+        slam.run(max_frames=2)  # frame 0, its init mapping, frame 1
+        torch.cuda.synchronize()
+        t1 = time.time()
+        slam.run(max_frames=N_FRAMES)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        n = N_FRAMES
+        last = INGEST_FRAMES - RESUME_FRAMES
+        while len(fe.kf_indices) < 2 and n < last and time.time() - t0 < INGEST_BUDGET_S:
+            n += 1
+            slam.run(max_frames=n)  # ends with the keyframe's mapping pumped
+        torch.cuda.synchronize()
+        t3 = time.time()
+    finally:
+        frontend_mod.track_frame = recorder.track_frame
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    frames = sorted(fe.cameras)
+    if len(fe.kf_indices) < 2:
+        fail(f"tum: no keyframe after frame 0 by frame {n} ({INGEST_BUDGET_S} s budget)")
+    if not all(np.isfinite(fe.cameras[i].T_est).all() for i in frames):
+        fail("tum: non-finite pose")
+    ate = slam.keyframe_ate()
+    iters = [recorder.iters[i] for i in sorted(recorder.iters)]
+    snapshot = snapshot_map(slam, fe.kf_indices[-1], "TUM VGA end map")
+    tier_phase(slam)
+
+    # (c) checkpoint after the keyframe's mapping, load_map, resume
+    path = os.path.join(tmp, "checkpoint.npz")
+    torch.cuda.synchronize()
+    t4 = time.time()
+    slam.save_checkpoint(path)
+    save_ms = 1e3 * (time.time() - t4)
+    loaded, host = load_map(path, dev)
+    for (name, a), (_, b) in zip(_map_fields(slam.engine.gmap), _map_fields(loaded)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"tum: load_map's {name} differs from the saved map")
+    if loaded.moments.count != slam.engine.gmap.moments.count or \
+            host["kf_ids"] != sorted(slam.engine.viewpoints):
+        fail("tum: load_map's Adam step or keyframes differ from the saved run's")
+    info = {
+        "frames_run": n,
+        "sequence_frames": INGEST_FRAMES,
+        "write_s": write_s,
+        "paeth_row_share": paeth,
+        "init_and_first_frame_s": t1 - t0,
+        "tracked_fps": (N_FRAMES - 2) / (t2 - t1),
+        "frames_12_on_s": t3 - t2,
+        "adam_iters_mean": float(np.mean(iters)),
+        "adam_iters_max": int(max(iters)),
+        "launches": dict(launches),
+        "keyframes": list(fe.kf_indices),
+        "alive": slam.n_alive(),
+        "map_rows": int(slam.engine.gmap.aux.active.shape[0]),
+        "keyframe_ate_cm": 100.0 * ate,
+        "loader_ms_per_frame": _frame_ms(slam.timers, "fetch_frame"),
+        "tracking_ms_per_frame": _frame_ms(slam.timers, "tracking"),
+        "checkpoint_bytes": os.path.getsize(path),
+        "save_ms": save_ms,
+        "timers": slam.timers.summary(),
+    }
+    assert_loader_never_waits("tum", fe, range(3))
+    slam.stop()
+    del slam, fe, loaded
+
+    resumed = SLAM(config, dev, seed=0)
+    B.reset_launch_counts()
+    torch.cuda.synchronize()
+    t5 = time.time()
+    next_frame = resumed.resume(path)
+    torch.cuda.synchronize()
+    info["resume_ms"] = 1e3 * (time.time() - t5)
+    t6 = time.time()
+    resumed.run(max_frames=next_frame + RESUME_FRAMES)
+    torch.cuda.synchronize()
+    rfe = resumed.frontend
+    info["resumed_frames"] = [next_frame, next_frame + RESUME_FRAMES]
+    info["resumed_fps"] = RESUME_FRAMES / (time.time() - t6)
+    info["resumed_keyframes"] = list(rfe.kf_indices)
+    info["resumed_keyframe_ate_cm"] = 100.0 * resumed.keyframe_ate()
+    for k in launches:
+        launches[k] += B.LAUNCHES[k]
+    info["launches_with_resume"] = launches
+    resumed.stop()
+    print("tum: " + json.dumps(info), flush=True)
+    if len(info["keyframes"]) < 2 or not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"tum: keyframe ATE {info['keyframe_ate_cm']} cm over {info['keyframes']}: "
+             f"needs 2 keyframes and under {100.0 * RGBD_ATE_BAR} cm")
+    if not all(np.isfinite(rfe.cameras[i].T_est).all() for i in rfe.cameras) or \
+            max(rfe.cameras) != next_frame + RESUME_FRAMES - 1:
+        fail("tum: the resumed run's frames are not all there and finite")
+    if not info["resumed_keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"tum: resumed keyframe ATE {info['resumed_keyframe_ate_cm']} cm")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the TUM ingest run")
+    print(f"tum: tracked frames/s {info['tracked_fps']:.4f}; Adam iterations a frame "
+          f"{info['adam_iters_mean']:.2f}; launches {launches}; keyframes {info['keyframes']}; "
+          f"keyframe ATE {info['keyframe_ate_cm']:.4f} cm; loader {info['loader_ms_per_frame']} "
+          f"ms a frame (Paeth rows) against tracking {info['tracking_ms_per_frame']} ms "
+          f"(the next frame's fetch apart); checkpoint "
+          f"{info['checkpoint_bytes']} bytes, save {save_ms:.1f} ms, resume "
+          f"{info['resume_ms']:.1f} ms; resumed frames {info['resumed_frames']} keyframe ATE "
+          f"{info['resumed_keyframe_ate_cm']:.4f} cm", flush=True)
+    return info, launches, snapshot
+
+
+def euroc_ingest(dev, tmp):
+    """(d): the EuRoC-layout stereo sequence and the EuRoC base config on it
+    (rectification and matcher on the card). Returns (info, launches)."""
+    import torch
+
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.data.stereo import sgbm_disparity
+    from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+    from monogs_dev_tpu_torch.models.camera import Intrinsics
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.ops.raster_types import RasterConfig
+    from monogs_dev_tpu_torch.ops.rasterize import render_median_depth
+    from monogs_dev_tpu_torch.tools import make_fixtures as mf
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    w, h = EUROC_SIZE
+    params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n6000.npz"), dev)
+    t0 = time.time()
+    ds_cfg = mf.write_euroc(os.path.join(tmp, "euroc"), params, active, EUROC_FRAMES, w, h)
+    write_s = time.time() - t0
+    config = load_config(EUROC_CONFIG)
+    config["Dataset"].update(dataset_path=ds_cfg["dataset_path"],
+                             Calibration=ds_cfg["Calibration"])
+    config["TPU"].update(EUROC_TPU)
+    slam = SLAM(config, dev, seed=0)
+    ds = slam.dataset
+
+    # the matcher alone on frame 1's rectified pair, and its depth against
+    # the scene's median depth (the JAX test's bars)
+    left, right = ds.rectified_pair(1)
+    matcher_ms = cuda_ms(lambda: sgbm_disparity(left, right), reps=5)
+    image, depth, pose = ds[1]
+    fx = 0.9 * w
+    gt = render_median_depth(params, active, torch.as_tensor(pose, dtype=torch.float32,
+                                                             device=dev),
+                             Intrinsics(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0, width=w,
+                                        height=h),
+                             RasterConfig(max_per_tile=512, k_dup=16))
+    valid = (depth > 0.1) & (depth < 10.0) & (gt > 0.1)
+    rel = ((depth - gt).abs() / gt)[valid]
+    loader_ms = cuda_ms(lambda: ds[2], reps=3)
+    torch.cuda.synchronize()
+    B.reset_launch_counts()
+    t1 = time.time()
+    slam.run()
+    torch.cuda.synchronize()
+    run_s = time.time() - t1
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    fe = slam.frontend
+    info = {
+        "frames": len(fe.cameras),
+        "size": [w, h],
+        "write_s": write_s,
+        "matcher_ms_per_frame": matcher_ms,
+        "loader_ms_per_frame": loader_ms,
+        "valid_share": float(valid.float().mean()),
+        "median_rel_depth_err": float(rel.median()) if rel.numel() else float("nan"),
+        "fps": len(fe.cameras) / run_s,
+        "keyframes": list(fe.kf_indices),
+        "alive": slam.n_alive(),
+        "keyframe_ate_cm": 100.0 * slam.keyframe_ate(),
+        "launches": launches,
+        "timers": slam.timers.summary(),
+    }
+    assert_loader_never_waits("euroc", fe, range(2))
+    slam.stop()
+    print("euroc: " + json.dumps(info), flush=True)
+    if not info["valid_share"] > STEREO_VALID_BAR:
+        fail(f"euroc: valid-disparity share {info['valid_share']} <= {STEREO_VALID_BAR}")
+    if not info["median_rel_depth_err"] < STEREO_REL_BAR:
+        fail(f"euroc: median relative depth error {info['median_rel_depth_err']}")
+    if info["frames"] != EUROC_FRAMES or not all(np.isfinite(fe.cameras[i].T_est).all()
+                                                 for i in fe.cameras):
+        fail("euroc: frames missing or not finite")
+    if not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"euroc: keyframe ATE {info['keyframe_ate_cm']} cm")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the EuRoC run")
+    print(f"euroc: matcher {matcher_ms:.2f} ms a frame ({w}x{h}); valid share "
+          f"{info['valid_share']:.4f}; median relative depth error "
+          f"{info['median_rel_depth_err']:.4f}; keyframes {info['keyframes']}; keyframe ATE "
+          f"{info['keyframe_ate_cm']:.4f} cm; {info['fps']:.4f} frames/s; launches {launches}",
+          flush=True)
+    return info, launches
+
+
+def ingest_phase(dev):
+    """Phase 9: `tum_ingest` and `euroc_ingest` in a temporary directory. Returns (tum info, euroc info, launches by
+    path, the TUM map snapshot)."""
+    import tempfile
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="ingest_") as tmp:
+        tum, tum_launches, snapshot = tum_ingest(dev, tmp)
+        euroc, euroc_launches = euroc_ingest(dev, tmp)
+    print(f"ingest: phase {time.time() - t0:.1f} s", flush=True)
+    return tum, euroc, {"tum_vga": tum_launches, "euroc": euroc_launches}, snapshot
+
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -946,21 +1241,47 @@ def main() -> int:
 
     path, secs = B.build(verbose=True)
     print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s", flush=True)
+    from monogs_dev_tpu_torch.data import image_io
+
+    path, secs = image_io.build()  # the host C compiler: PNG rows for the loaders
+    print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(CONFIG)
-    sets = {"frame 0": scene_kernel_phase(config, dev)}
-    slam, gn_launches, snapshots = slice_phase(config, dev)
-    sets.update(map_kernel_phase(snapshots, slam.intr, slam.raster_cfg,
-                                 slam.step_cfg.mapping_rebin_dilation))
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_s[name] = time.time() - t0
+        return out
+
+    sets = {"frame 0": timed("kernels frame 0", scene_kernel_phase, config, dev)}
+    slam, gn_launches, snapshots = timed("rgbd gn slice", slice_phase, config, dev)
+    sets.update(timed("kernels gn maps", map_kernel_phase, snapshots, slam.intr,
+                      slam.raster_cfg, slam.step_cfg.mapping_rebin_dilation))
     del slam
-    parity, parity_snaps = parity_phase(dev)
-    lab_launches, sets["lab"] = lab_phase(dev)
-    mono, mono_snap, intr, rcfg, dilate = mono_phase(load_config(CONFIG), dev)
-    sets.update(map_kernel_phase(parity_snaps + [mono_snap], intr, rcfg, dilate))
+    parity = timed("parity", parity_phase, dev)
+    lab_launches, sets["lab"] = timed("lab", lab_phase, dev)
+    mono, mono_snap, intr, rcfg, dilate = timed("mono", mono_phase, load_config(CONFIG), dev)
+    sets.update(timed("kernels mono map", map_kernel_phase, [mono_snap], intr, rcfg, dilate))
+    tum, euroc, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
+    tum_cfg = load_config(TUM_CONFIG)
+    cal = tum_cfg["Dataset"]["Calibration"]
+    from monogs_dev_tpu_torch.core.params import StepConfig
+    from monogs_dev_tpu_torch.core.system import raster_config_from
+    from monogs_dev_tpu_torch.models.camera import Intrinsics
+
+    tum_intr = Intrinsics(fx=float(cal["fx"]), fy=float(cal["fy"]), cx=float(cal["cx"]),
+                          cy=float(cal["cy"]), width=int(cal["width"]),
+                          height=int(cal["height"]))
+    sets.update(timed("kernels tum map", map_kernel_phase, [tum_snap], tum_intr,
+                      raster_config_from(tum_cfg),
+                      StepConfig.from_config(tum_cfg).mapping_rebin_dilation))
     profiled = {"mono": mono["profile"], "parity": parity["profile"]}
     paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
-             "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"]}
+             "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"],
+             **ingest_launches}
     ksets = {label: k for label, (k, _) in sets.items()}
     lsets = {label: lab for label, (_, lab) in sets.items()}
 
@@ -1013,6 +1334,7 @@ def main() -> int:
               f"{lres['L1/nocond']['ms'] / kres['K1']['ms']:.2f}x); L2 {lres['L2']['ms']:.4f} ms "
               f"against K2 {kres['K2']['ms']:.4f} ms ({lres['L2']['ms'] / kres['K2']['ms']:.2f}x)",
               flush=True)
+    print("phases (s): " + json.dumps(phase_s), flush=True)
     print(f"wall time: {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

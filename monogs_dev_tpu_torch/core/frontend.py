@@ -154,6 +154,9 @@ class FrontEnd:
         )
         self._snapshot_hw: Optional[int] = None
         self._zero_depth: Optional[torch.Tensor] = None  # monocular tracking depth
+        self._prefetch: Dict[int, tuple] = {}
+        self._prefetch_s = 0.0  # the fetch inside the last tracking(), tallied apart
+        self._run_end = 0  # frames past the current run's end are not prefetched
 
     # ----------------------------------------------------------------- comms
 
@@ -222,6 +225,28 @@ class FrontEnd:
                                  {int(k): np.asarray(T) for k, T in keyframes}, tag)
 
     # ------------------------------------------------------------- per frame
+
+    def _load_frame(self, idx: int):
+        """(image, depth, T_gt) of frame idx on the device: the copy that
+        `_prefetch_frame` started while the previous frame was tracked, or
+        a fresh fetch. Also how a resumed run rebuilds its keyframes."""
+        hit = self._prefetch.pop(idx, None)
+        return hit if hit is not None else self._fetch_frame(idx)
+
+    def _fetch_frame(self, idx: int):
+        """One frame from the dataset, on the device. The real-data loaders
+        decode into pinned host memory and copy without blocking, so the
+        host goes on at once."""
+        t0 = time.time()
+        image, depth, T_gt = self.dataset[idx]
+        self._tally("fetch_frame", t0)
+        return image, depth, np.asarray(T_gt)
+
+    def _prefetch_frame(self, idx: int) -> None:
+        t0 = time.time()
+        if idx not in self._prefetch and idx < self._run_end:
+            self._prefetch = {idx: self._fetch_frame(idx)}
+        self._prefetch_s = time.time() - t0
 
     def _valid_rgb_depth(self, image, depth):
         return torch.where(image.sum(dim=-1) > self.cfg.rgb_boundary_threshold, depth,
@@ -311,6 +336,8 @@ class FrontEnd:
             image, depth, None, self.bg_color, cfg, self.intr, self.track_raster_cfg,
             use_depth=use_depth,
         )
+        # fetch the next frame before the result is read back to the host
+        self._prefetch_frame(cur_frame_idx + 1)
         touched = result.touched.cpu().numpy()
         cap = self.engine.capacity
         if touched.shape[0] < cap:
@@ -351,6 +378,7 @@ class FrontEnd:
         if max_frames is not None:
             n_frames = min(n_frames, max_frames)
         cur_frame_idx = self.cur_frame_idx
+        self._run_end = n_frames
         pump = getattr(self.backend_thread, "pump", None)
 
         while cur_frame_idx < n_frames:
@@ -370,7 +398,7 @@ class FrontEnd:
                 continue
 
             t0 = time.time()
-            image, depth, T_gt = self.dataset[cur_frame_idx]
+            image, depth, T_gt = self._load_frame(cur_frame_idx)
             self._tally("load_frame", t0)
             if self.reset:
                 self.initialize(cur_frame_idx, image, depth, T_gt)
@@ -381,7 +409,8 @@ class FrontEnd:
 
             t0 = time.time()
             track = self.tracking(cur_frame_idx, image, depth)
-            self._tally("tracking", t0)
+            # the next frame's fetch inside tracking() counts as fetch_frame only
+            self._tally("tracking", t0 + self._prefetch_s)
             if self.timers is not None:
                 self.timers.tally("tracking_iters", int(track.n_iters))
             self.cameras[cur_frame_idx] = FrameInfo(cur_frame_idx, track.T_w2c, T_gt,

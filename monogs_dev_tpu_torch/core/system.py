@@ -1,6 +1,6 @@
 """SLAM orchestrator (port of `monogs_dev_tpu/core/system.py`: `SLAM.__init__`,
-`run`, `stop`, `evaluate`, plus `raster_config_from`, `resolve_thread_flags`
-and `make_save_dir`).
+`run`, `stop`, `evaluate`, `save_checkpoint`, `resume`, plus
+`raster_config_from`, `resolve_thread_flags` and `make_save_dir`).
 
 Wires config -> dataset -> map -> frontend/backend on one device, runs the
 sequence, and drives the eval tail (ATE, rendering metrics before and after
@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..data.synthetic import load_dataset
+from ..data.datasets import load_dataset
 from ..eval.ate import ate_rmse, eval_ate
 from ..eval.rendering import eval_rendering, save_gaussians
 from ..models.camera import Intrinsics
@@ -150,6 +150,28 @@ class SLAM:
         self.metrics.log(results)
         self.metrics.finish()
         return results
+
+    def save_checkpoint(self, path: str) -> str:
+        """Write the full state (map, Adam moments, keyframes, trajectory;
+        utils/checkpoint.py) to `path`."""
+        from ..utils.checkpoint import save_checkpoint
+
+        if self.backend_thread is not None:  # quiesce the message protocol
+            self.backend_thread.pump(idle_budget=0)
+            self.frontend._drain_frontend_queue()
+        save_checkpoint(path, self.engine, self.frontend)
+        Log(f"checkpoint saved to {path}")
+        return path
+
+    def resume(self, path: str) -> int:
+        """Restore a checkpoint and position the frontend at the next frame;
+        a following `run()` continues the sequence. Call before `run()`."""
+        from ..utils.checkpoint import restore_checkpoint
+
+        next_frame = restore_checkpoint(path, self.engine, self.frontend)
+        Log(f"resumed from {path}: {len(self.engine.viewpoints)} keyframes, "
+            f"continuing at frame {next_frame}")
+        return next_frame
 
 
 def make_save_dir(config, config_path: str) -> Optional[str]:

@@ -19,6 +19,7 @@ from ..models.camera import Intrinsics
 from ..models.convert import params_from_numpy
 from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import render_tiled
+from .datasets import load_dataset  # noqa: F401  (the factory's old home)
 
 SCENE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes")
 
@@ -133,12 +134,3 @@ class SyntheticDataset:
         if self.sensor_type == "monocular" or not self.has_depth:
             return color, None, self.poses[idx]
         return color, depth, self.poses[idx]
-
-
-def load_dataset(config, device):
-    dtype = config["Dataset"]["type"]
-    if dtype == "synthetic":
-        return SyntheticDataset(config, device)
-    raise NotImplementedError(
-        f"dataset type {dtype!r} is not ported yet; the port runs synthetic scenes"
-    )

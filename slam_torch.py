@@ -3,6 +3,9 @@
 
     python slam_torch.py --config configs/synthetic/bench_vga.yaml --max-frames 12
     python slam_torch.py --config configs/synthetic/bench_vga_parity.yaml --eval
+    python slam_torch.py --config configs/rgbd/tum/fixture_surface.yaml --max-frames 6 \
+        --save-checkpoint
+    python slam_torch.py --config configs/rgbd/tum/fixture_surface.yaml --resume <npz>
 
 Runs on `--device` (default `cuda`, where the blend runs in the CUDA kernels
 of monogs_dev_tpu_torch/csrc) and stops when that device is missing.
@@ -10,12 +13,17 @@ of monogs_dev_tpu_torch/csrc) and stops when that device is missing.
 sizes. `--eval` applies the reference's overrides (save_results, no GUI,
 rendering eval on), runs the eval tail after the sequence and prints its
 results JSON; artifacts land in results/<dataset>_<datetime>/.
+`--save-checkpoint` writes the full state (utils/checkpoint.py) after the
+run, into the results directory or, without one, `checkpoint.npz`;
+`--resume <npz>` restores such a file (from either package) and continues
+the sequence from its next frame.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -32,11 +40,11 @@ def main() -> int:
     parser.add_argument("--max-frames", type=int, default=None, help="limit sequence length")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--resume", type=str, default=None)
-    parser.add_argument("--save-checkpoint", action="store_true")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="full-state checkpoint.npz to resume from (utils/checkpoint.py)")
+    parser.add_argument("--save-checkpoint", action="store_true",
+                        help="write checkpoint.npz into the results dir after the run")
     args = parser.parse_args()
-    if args.resume or args.save_checkpoint:
-        raise NotImplementedError("checkpoints (utils/checkpoint.py) are not ported yet")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -49,7 +57,11 @@ def main() -> int:
         config["Results"].update(save_results=True, use_gui=False, eval_rendering=True)
     slam = SLAM(config, device, seed=args.seed, save_dir=make_save_dir(config, args.config))
     try:
+        if args.resume:
+            slam.resume(args.resume)
         slam.run(max_frames=args.max_frames)
+        if args.save_checkpoint:
+            slam.save_checkpoint(os.path.join(slam.save_dir or "", "checkpoint.npz"))
         if args.eval or config["Results"].get("eval_rendering", False):
             result = slam.evaluate(
                 eval_rendering_flag=config["Results"].get("eval_rendering", True))

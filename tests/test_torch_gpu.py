@@ -27,6 +27,8 @@ footprints of about a pixel, so that most warps miss most entries (the
 per-warp skips); `l128_edge` mixes in opacities under alpha_min,
 conics near singular and footprints wider than a tile."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -399,3 +401,97 @@ def test_ssim_and_lpips_on_card_match_cpu(cuda):
     assert abs(float(ssim(ca, cb)) - float(ssim(ta, tb))) <= 1e-6
     assert abs(float(psnr(ca, cb)) - float(psnr(ta, tb))) <= 1e-5
     assert abs(lpips(ca, cb) - lpips(ta, tb)) <= 1e-5 * lpips(ta, tb)
+
+
+# --------------------------------------------------------------- ingest (data/)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.gpu
+def test_png_unfilter_on_card_machine_matches_plain(cuda, tmp_path):
+    """The C unfilter, built with the card machine's host compiler, against
+    its plain version on every filter type and mode, and on VGA frames of
+    TUM's two modes, Paeth-filtered as the writer writes them, against the
+    frames themselves."""
+    from monogs_dev_tpu_torch.data import image_io
+
+    rng = np.random.default_rng(0)
+    for arr in (rng.integers(0, 256, (33, 47, 3), dtype=np.uint8),
+                rng.integers(0, 65536, (21, 30), dtype=np.uint16),
+                rng.integers(0, 256, (9, 13, 4), dtype=np.uint8)):
+        info, raw = image_io.parse_png(image_io.encode_png(arr))
+        rows = np.frombuffer(raw, np.uint8).reshape(info.height, -1).copy()
+        rows[:, 0] = np.arange(info.height) % 5  # every filter type, as data
+        raw = rows.tobytes()
+        bpp = info.channels * info.sample_bytes
+        a = np.empty((info.height, info.stride), np.uint8)
+        b = np.empty_like(a)
+        image_io.unfilter_c(raw, a, info.height, info.stride, bpp)
+        image_io.unfilter_plain(raw, b, info.height, info.stride, bpp)
+        assert np.array_equal(a, b)
+    for arr in (rng.integers(0, 256, (480, 640, 3), dtype=np.uint8),
+                rng.integers(0, 65536, (480, 640), dtype=np.uint16)):
+        assert np.array_equal(image_io.decode_png(image_io.encode_png(arr)), arr)
+
+
+def _euroc_pair(dev):
+    from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+    from monogs_dev_tpu_torch.models.camera import Intrinsics as I
+    from monogs_dev_tpu_torch.tools import make_fixtures as mf
+
+    params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n6000.npz"), dev)
+    intr = I(fx=144.0, fy=144.0, cx=80.0, cy=60.0, width=160, height=120)
+    T = mf.orbit_pose(1, 40, sweep=0.45).astype(np.float32)
+    T_r = T.copy()
+    T_r[0, 3] -= 47.90639384423901 / 144.0
+    gray = []
+    for pose in (T, T_r):
+        color, _ = mf.render_rgbd(params, active, pose, intr, depth=False)
+        c = (color * 255).astype(np.int64)
+        gray.append(((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2]) >> 15)
+                    .astype(np.uint8))
+    return gray
+
+
+@pytest.mark.gpu
+def test_matcher_and_remap_on_card_match_cpu(cuda):
+    """The matcher is integer arithmetic and the remap float32 with the
+    same operation order on both devices: 0 differing pixels."""
+    from monogs_dev_tpu_torch.data import camera_maps
+    from monogs_dev_tpu_torch.data.stereo import sgbm_disparity
+
+    left, right = _euroc_pair("cpu")
+    lc, rc = torch.from_numpy(left), torch.from_numpy(right)
+    d_cpu = sgbm_disparity(lc, rc)
+    d_gpu = sgbm_disparity(lc.to(cuda), rc.to(cuda)).cpu()
+    n_diff = int((d_cpu != d_gpu).sum())
+    print(f"matcher: {n_diff} of {d_cpu.numel()} pixels differ between cuda and cpu")
+    assert n_diff == 0
+    K = np.array([[144.0, 0, 80.0], [0, 144.0, 60.0], [0, 0, 1.0]])
+    mx, my = camera_maps.init_undistort_rectify_map(
+        K, [-0.28, 0.07, 2e-4, 2e-5, 0.0], np.eye(3), K, (160, 120))
+    img = torch.from_numpy(np.stack([left] * 3, axis=-1))
+    r_cpu = camera_maps.remap_linear(img, camera_maps.remap_plan(mx, my, "cpu"))
+    r_gpu = camera_maps.remap_linear(img.to(cuda), camera_maps.remap_plan(mx, my, cuda)).cpu()
+    n_diff = int((r_cpu != r_gpu).sum())
+    print(f"remap: {n_diff} of {r_cpu.numel()} values differ between cuda and cpu")
+    assert n_diff == 0
+
+
+@pytest.mark.gpu
+def test_tum_loader_on_cuda_returns_cuda_tensors(cuda):
+    from monogs_dev_tpu_torch.data.datasets import load_dataset
+
+    cal = {"fx": 144.0, "fy": 144.0, "cx": 80.0, "cy": 60.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
+           "p2": 0.0, "k3": 0.0, "width": 160, "height": 120, "depth_scale": 5000.0,
+           "distorted": False}
+    cfg = {"Dataset": {"type": "tum", "Calibration": cal,
+                       "dataset_path": os.path.join(REPO, "tests", "fixtures", "tum_surface")}}
+    ds, ds_cpu = load_dataset(cfg, cuda), load_dataset(cfg, "cpu")
+    image, depth, pose = ds[3]
+    assert image.device.type == "cuda" and depth.device.type == "cuda"
+    assert image.shape == (120, 160, 3) and image.dtype == torch.float32
+    ref = ds_cpu[3]
+    assert torch.equal(image.cpu(), ref[0]) and torch.equal(depth.cpu(), ref[1])
+    assert np.array_equal(pose, ref[2])

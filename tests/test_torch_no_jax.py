@@ -4,7 +4,11 @@ and `tools/kernel_lab.py`, the Adam tracker and the eval modules among them)
 and `bench_torch.py` import, a tiny scene renders on the CPU, the lab's
 L1/L2 plain versions run, the Adam tracker takes 3 steps, and the metrics,
 PLY and ATE artifacts work; nothing of the JAX package or of
-`tools/kernel_lab.py` gets imported along the way."""
+`tools/kernel_lab.py` gets imported along the way. A second interpreter,
+where PIL and cv2 fail to import as well (the card machine has neither),
+runs the ingest path the card runs: the TUM loader on the committed
+fixture, the EuRoC writer, loader and matcher on a 2-frame pair, and a
+checkpoint saved and loaded."""
 
 import os
 import subprocess
@@ -87,6 +91,55 @@ print("ok", len(names))
 def test_port_imports_and_renders_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok"), proc.stdout
+
+
+INGEST = r"""
+import os, sys, tempfile
+for name in ("jax", "PIL", "cv2"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.data.datasets import load_dataset
+from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+from monogs_dev_tpu_torch.models.gaussians import create_map
+from monogs_dev_tpu_torch.tools import make_fixtures as mf
+from monogs_dev_tpu_torch.utils.checkpoint import load_map, save_checkpoint
+cal = {"fx": 144.0, "fy": 144.0, "cx": 80.0, "cy": 60.0, "k1": 0.0, "k2": 0.0, "p1": 0.0,
+       "p2": 0.0, "k3": 0.0, "width": 160, "height": 120, "depth_scale": 5000.0,
+       "distorted": False}
+ds = load_dataset({"Dataset": {"type": "tum", "Calibration": cal,
+                               "dataset_path": "tests/fixtures/tum_surface"}}, "cpu")
+image, depth, pose = ds[5]
+assert len(ds) == 80 and image.shape == (120, 160, 3) and float((depth > 0).float().mean()) > 0.5
+params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n6000.npz"), "cpu")
+with tempfile.TemporaryDirectory() as d:
+    cfg = mf.write_euroc(os.path.join(d, "euroc"), params, active, n_frames=2, w=160, h=120)
+    st = load_dataset({"Dataset": {"type": "euroc", "sensor_type": "stereo",
+                                   "dataset_path": cfg["dataset_path"],
+                                   "Calibration": cfg["Calibration"]}}, "cpu")
+    image, depth, pose = st[1]
+    assert len(st) == 2 and float((depth > 0).float().mean()) > 0.15
+    e = type("Engine", (), {})()
+    e.gmap, e.iteration_count, e.current_window, e.initialized = create_map(32, 0, "cpu"), 3, [0], True
+    e.viewpoints = {}
+    save_checkpoint(os.path.join(d, "c.npz"), e)
+    gmap, host = load_map(os.path.join(d, "c.npz"), "cpu")
+    assert torch.equal(gmap.params.xyz, e.gmap.params.xyz) and host["iteration_count"] == 3
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_ingest_path_without_pil_cv2_or_jax():
+    """The loaders, the matcher, the fixture writer and the checkpoint run
+    where PIL, cv2 and JAX are missing, as on the card machine."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", INGEST], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok"), proc.stdout
