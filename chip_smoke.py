@@ -56,7 +56,13 @@
    against its full render); saves a checkpoint right after that keyframe's
    mapping, checks `load_map` of it against the map bit for bit, resumes
    it in a fresh `SLAM` and runs RESUME_FRAMES more frames (the `tum:`
-   line); then writes a EuRoC-layout stereo sequence (320x240, 24 frames)
+   line); the thread phase (`thread_phase`, the `thread:` line): the same
+   checkpoint resumed with `TPU.scheduler: thread` and `Results.use_gui`,
+   a headless viewer thread rendering each packet, the same frames in turns
+   with a second inline resumed run, then on until the backend thread has
+   mapped a keyframe while the frontend tracked, one profiled frame, and
+   the hand-off's snapshot checksums; then writes a EuRoC-layout stereo
+   sequence (320x240, EUROC_FRAMES frames)
    and runs the EuRoC base config on it through the rectification and the
    matcher (the `euroc:` line). Both fetch a few frames again under torch's
    sync debug mode set to raise (`assert_loader_never_waits`).
@@ -122,15 +128,23 @@ GRAD_CHECK_REL, LOSS_CHECK_REL = 1e-3, 1e-5
 PARITY_PROFILE_FRAMES = 1
 RGBD_ATE_BAR = 0.03  # PERF.md section 2
 # ingest phase: the TUM-layout sequence (INGEST_FRAMES frames of the bench
-# scene along bench_vga's orbit at fr3_office's calibration), the run's wall
-# budget to its first keyframe after frame 0, the frames run after the
-# resume; the EuRoC-layout stereo sequence (tools/run_fixture_evals.py's rig)
+# scene along bench_vga's orbit at fr3_office's calibration; 64 until the
+# thread phase needed the keyframe after frame 50, which came at frame 76),
+# the run's wall budget to its first keyframe after frame 0, the frames run
+# after the resume; the EuRoC-layout stereo sequence
+# (tools/run_fixture_evals.py's rig)
 TUM_CONFIG = os.path.join(REPO, "configs", "rgbd", "tum", "fr3_office.yaml")
 EUROC_CONFIG = os.path.join(REPO, "configs", "stereo", "euroc", "base_config.yaml")
-INGEST_FRAMES = 64
+INGEST_FRAMES = 88
 INGEST_BUDGET_S = 200.0
 RESUME_FRAMES = 8
-EUROC_FRAMES, EUROC_SIZE = 24, (320, 240)
+# thread phase: the wall budget to a keyframe mapped on the backend thread
+# while the frontend tracked on, after the resumed frames; frames profiled
+THREAD_BUDGET_S = 200.0
+THREAD_PROFILE_FRAMES = 1
+# 24 EuRoC frames until the thread phase took their time: with 24, a host as
+# slow as the slowest seen would near the 1,200 s limit (PERF.md section 7)
+EUROC_FRAMES, EUROC_SIZE = 12, (320, 240)
 EUROC_TPU = {"capacity": 32768, "max_per_tile": 512, "k_dup": 8}
 STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
@@ -1099,6 +1113,7 @@ def tum_ingest(dev, tmp):
         launches[k] += B.LAUNCHES[k]
     info["launches_with_resume"] = launches
     resumed.stop()
+    thread = thread_phase(config, dev, path, next_frame, tmp, info["resumed_fps"])
     print("tum: " + json.dumps(info), flush=True)
     if len(info["keyframes"]) < 2 or not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
         fail(f"tum: keyframe ATE {info['keyframe_ate_cm']} cm over {info['keyframes']}: "
@@ -1119,7 +1134,213 @@ def tum_ingest(dev, tmp):
           f"{info['checkpoint_bytes']} bytes, save {save_ms:.1f} ms, resume "
           f"{info['resume_ms']:.1f} ms; resumed frames {info['resumed_frames']} keyframe ATE "
           f"{info['resumed_keyframe_ate_cm']:.4f} cm", flush=True)
-    return info, launches, snapshot
+    return info, launches, snapshot, thread
+
+
+class ViewerThread:
+    """A headless viewer on a host thread and CUDA stream of its own: it
+    renders the newest `GaussianPacket` of `channel` through
+    `OfflineViewer.tick` (`render_view`, K1) into `out_dir`."""
+
+    def __init__(self, channel, intr, out_dir):
+        import threading
+
+        from monogs_dev_tpu_torch.viz import OfflineViewer, VizChannel
+
+        self.source, self.local = channel, VizChannel()
+        self.viewer = OfflineViewer(self.local, intr, out_dir)
+        self.stop_event = threading.Event()
+        self.renders, self.error = 0, None
+        self.thread = threading.Thread(target=self._run, name="viewer", daemon=True)
+
+    def _run(self):
+        import torch
+
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                while not self.stop_event.is_set():
+                    packet = self.source.latest()
+                    if packet is None:
+                        time.sleep(0.01)
+                        continue
+                    self.local.publish(packet)
+                    if self.viewer.tick(packet.params, packet.active) is not None:
+                        self.renders += 1
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # reported by stop()
+            self.error = e
+
+    def stop(self):
+        self.stop_event.set()
+        self.thread.join(timeout=60)
+
+
+class HandoffChecks:
+    """Snapshot integrity across the backend thread's hand-off, wrapped
+    around it (the main path is unchanged): at each `push_to_frontend` a
+    float64 checksum of the map's xyz, opacity and f_dc on the backend's
+    stream; when the frontend replaces that snapshot, the same checksum on
+    the frontend's stream. Also counts the frames the frontend tracked while
+    a keyframe was out on the backend."""
+
+    def __init__(self, slam):
+        self.pending, self.pairs, self.tracked_in_flight = {}, [], 0
+        bt, fe = slam.backend_thread, slam.frontend
+        push, adopt, tracking = bt.push_to_frontend, fe._adopt_snapshot, fe.tracking
+
+        def checked_push(tag="sync_backend"):
+            params = slam.engine.gmap.params
+            self.pending[id(params.xyz)] = (params.xyz, self.checksum(params))
+            push(tag)
+
+        def checked_adopt(snapshot, *args, **kwargs):
+            old = fe.snapshot[0]
+            hit = self.pending.pop(id(old.xyz), None)
+            if hit is not None and hit[0] is old.xyz:
+                self.pairs.append((hit[1], self.checksum(old)))
+            adopt(snapshot, *args, **kwargs)
+
+        def counted_tracking(*args, **kwargs):
+            self.tracked_in_flight += fe.requested_keyframe > 0
+            return tracking(*args, **kwargs)
+
+        bt.push_to_frontend, fe._adopt_snapshot, fe.tracking = (checked_push, checked_adopt,
+                                                                counted_tracking)
+
+    @staticmethod
+    def checksum(params):
+        import torch
+
+        return torch.stack([params.xyz.double().sum(), params.opacity_logit.double().sum(),
+                            params.f_dc.double().sum()])
+
+    def mismatches(self):
+        return [i for i, (a, b) in enumerate(self.pairs) if not bool((a.cpu() == b.cpu()).all())]
+
+
+def thread_phase(config, dev, path, next_frame, tmp, inline_fps):
+    """The checkpoint resumed with the backend on its own thread and stream
+    (`TPU.scheduler: thread`) and the viewer channel open (`Results.use_gui`),
+    a headless viewer rendering each new packet on a thread of its own: the
+    RESUME_FRAMES frames, in turns with a second inline resumed run over
+    them (the first ran in `tum_ingest`); then on, frame by frame, until the
+    backend thread has mapped a keyframe while the frontend tracked on
+    (within THREAD_BUDGET_S), and THREAD_PROFILE_FRAMES profiled frames.
+    Returns (info, launches by path)."""
+    import copy
+
+    import torch
+
+    from monogs_dev_tpu_torch.core.backend import BackendThread
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.ops import blend as B
+
+    t_phase = time.time()
+    tcfg = copy.deepcopy(config)
+    tcfg["TPU"]["scheduler"] = "thread"
+    tcfg["Results"]["use_gui"] = True
+    slam = SLAM(tcfg, dev, seed=0)
+    bt, fe = slam.backend_thread, slam.frontend
+    if not isinstance(bt, BackendThread):
+        fail("thread: TPU.scheduler thread did not select BackendThread")
+    slam.resume(path)
+    checks = HandoffChecks(slam)
+    viewer = ViewerThread(slam.viz_channel, slam.intr, os.path.join(tmp, "viewer"))
+    viewer.thread.start()
+    launches = {"thread": dict.fromkeys(("K1", "K2", "K3"), 0), "viewer": {"K1": 0},
+                "tum_vga_inline2": {}}
+
+    def tally(path_name):
+        torch.cuda.synchronize()
+        for k in launches[path_name]:
+            launches[path_name][k] += B.LAUNCHES[k]
+        launches["viewer"]["K1"] += B.THREAD_LAUNCHES.get("viewer", {}).get("K1", 0)
+
+    info = {}
+    end = next_frame + RESUME_FRAMES
+    try:
+        torch.cuda.synchronize()
+        B.reset_launch_counts()
+        iters0 = slam.engine.telemetry["map_iters"]
+        t0 = time.time()
+        slam.run(max_frames=end)  # starts the backend thread
+        torch.cuda.synchronize()
+        info["thread_fps"] = RESUME_FRAMES / (time.time() - t0)
+        tally("thread")
+
+        # the second inline run, with the thread held idle
+        bt.backend_queue.put(["pause"])
+        with bt.held():
+            pass
+        inline = SLAM(config, dev, seed=0)
+        inline.resume(path)
+        torch.cuda.synchronize()
+        B.reset_launch_counts()
+        t0 = time.time()
+        inline.run(max_frames=end)
+        torch.cuda.synchronize()
+        info["inline_fps"] = [inline_fps, RESUME_FRAMES / (time.time() - t0)]
+        launches["tum_vga_inline2"] = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        info["inline2_keyframe_ate_cm"] = 100.0 * inline.keyframe_ate()
+        inline.stop()
+        del inline
+        bt.backend_queue.put(["unpause"])
+
+        # on until a keyframe was mapped on the thread while the frontend tracked
+        B.reset_launch_counts()
+        n, t0 = end, time.time()
+        last = INGEST_FRAMES - THREAD_PROFILE_FRAMES
+        while (bt.handled["keyframe"] < 1 or checks.tracked_in_flight < 1) and n < last \
+                and time.time() - t0 < THREAD_BUDGET_S:
+            n += 1
+            slam.run(max_frames=n)
+        info["frames_run"] = [next_frame, n]
+        info["profile"] = profile_frames("thread", slam, n, THREAD_PROFILE_FRAMES,
+                                         1e3 / info["thread_fps"])
+        tally("thread")
+        info["map_iters"] = slam.engine.telemetry["map_iters"] - iters0
+    finally:
+        slam.stop()
+        viewer.stop()
+    torch.cuda.synchronize()
+    info.update(
+        idle_rounds=bt.handled["idle"], keyframes_handled=bt.handled["keyframe"],
+        tracked_in_flight=checks.tracked_in_flight, keyframes=list(fe.kf_indices),
+        keyframe_ate_cm=100.0 * slam.keyframe_ate(), viewer_renders=viewer.renders,
+        viewer_k1=launches["viewer"]["K1"], integrity_checks=len(checks.pairs),
+        integrity_mismatches=checks.mismatches(), launches=launches["thread"],
+        phase_s=time.time() - t_phase, timers=slam.timers.summary())
+    print("thread: " + json.dumps(info), flush=True)
+    if viewer.error is not None:
+        fail(f"thread: the viewer thread failed: {viewer.error!r}")
+    if bt.is_alive() or viewer.thread.is_alive():
+        fail("thread: a thread is alive after stop()")
+    if info["integrity_mismatches"] or not info["integrity_checks"]:
+        fail(f"thread: snapshot checksums differ at {info['integrity_mismatches']} of "
+             f"{info['integrity_checks']} hand-offs")
+    if info["keyframes_handled"] < 1 or info["tracked_in_flight"] < 1:
+        fail(f"thread: no keyframe mapped on the thread while the frontend tracked by frame "
+             f"{n} ({THREAD_BUDGET_S} s budget)")
+    if not all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras) or \
+            not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"thread: poses not finite or keyframe ATE {info['keyframe_ate_cm']} cm")
+    if info["idle_rounds"] <= 0 or info["viewer_renders"] <= 0 or info["viewer_k1"] <= 0:
+        fail("thread: no idle round, no viewer render or no K1 from the viewer thread")
+    for name, k in info["launches"].items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the thread-mode run")
+    prof = info["profile"] or {}
+    print(f"thread: frames/s {info['thread_fps']:.4f} against inline "
+          f"{info['inline_fps'][0]:.4f} (before) and {info['inline_fps'][1]:.4f} (after), "
+          f"frames [{next_frame}, {end}); idle rounds {info['idle_rounds']}, mapping "
+          f"iterations {info['map_iters']}; frames tracked while a keyframe mapped "
+          f"{info['tracked_in_flight']}; keyframes handled {info['keyframes_handled']}, "
+          f"keyframes {info['keyframes']}, keyframe ATE {info['keyframe_ate_cm']:.4f} cm; viewer "
+          f"renders {info['viewer_renders']}, K1 from the viewer thread {info['viewer_k1']}; "
+          f"integrity checks {info['integrity_checks']} equal; device idle share "
+          f"{prof.get('idle_share_profiled')} (profiled) {prof.get('idle_share_of_timed_frame')} "
+          f"(of the timed frame); phase {info['phase_s']:.1f} s", flush=True)
+    return info, launches
 
 
 def euroc_ingest(dev, tmp):
@@ -1216,10 +1437,11 @@ def ingest_phase(dev):
 
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="ingest_") as tmp:
-        tum, tum_launches, snapshot = tum_ingest(dev, tmp)
+        tum, tum_launches, snapshot, (thread, thread_launches) = tum_ingest(dev, tmp)
         euroc, euroc_launches = euroc_ingest(dev, tmp)
     print(f"ingest: phase {time.time() - t0:.1f} s", flush=True)
-    return tum, euroc, {"tum_vga": tum_launches, "euroc": euroc_launches}, snapshot
+    return (tum, euroc, thread, {"tum_vga": tum_launches, "euroc": euroc_launches,
+                                 **thread_launches}, snapshot)
 
 
 
@@ -1265,7 +1487,8 @@ def main() -> int:
     lab_launches, sets["lab"] = timed("lab", lab_phase, dev)
     mono, mono_snap, intr, rcfg, dilate = timed("mono", mono_phase, load_config(CONFIG), dev)
     sets.update(timed("kernels mono map", map_kernel_phase, [mono_snap], intr, rcfg, dilate))
-    tum, euroc, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
+    tum, euroc, thread, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
+    phase_s["thread (in ingest)"] = thread["phase_s"]
     tum_cfg = load_config(TUM_CONFIG)
     cal = tum_cfg["Dataset"]["Calibration"]
     from monogs_dev_tpu_torch.core.params import StepConfig
@@ -1278,7 +1501,7 @@ def main() -> int:
     sets.update(timed("kernels tum map", map_kernel_phase, [tum_snap], tum_intr,
                       raster_config_from(tum_cfg),
                       StepConfig.from_config(tum_cfg).mapping_rebin_dilation))
-    profiled = {"mono": mono["profile"], "parity": parity["profile"]}
+    profiled = {"mono": mono["profile"], "parity": parity["profile"], "thread": thread["profile"]}
     paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
              "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"],
              **ingest_launches}
@@ -1292,7 +1515,7 @@ def main() -> int:
             "source": SOURCES["K"],
             "replaces": REPLACES[name],
             "launches": parity["launches"][name],
-            "launches_by_path": {path: n[name] for path, n in paths.items()},
+            "launches_by_path": {path: n.get(name, 0) for path, n in paths.items()},
             "max_abs_err": max(res[name]["max_abs_err"] for res in ksets.values()),
             **set_times(ksets["frame 0"][name]),
             "library_ms": None,  # no single PyTorch call computes the blend
@@ -1317,7 +1540,9 @@ def main() -> int:
         for name, n in lab_launches.items()
     ]
     # K1-K3: launches in the parity run (phase 5; every path's under
-    # launches_by_path); ms (kernel-only), ms_v1
+    # launches_by_path: `thread` counts every thread's launches in the
+    # thread-mode windows, `viewer` the viewer thread's alone); ms
+    # (kernel-only), ms_v1
     # (the first version's, in turns with it), wrapper_ms, plain_ms and
     # bound_ms on the bench scene's frame-0 props (phase 3), and the same for
     # every prop set under "sets". L1/L2: launches in the lab's run, the same

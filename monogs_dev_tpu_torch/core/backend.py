@@ -6,13 +6,29 @@ window optimizer state; runs the init/keyframe/idle mapping rounds of the
 reference message protocol. The map's row count is a tier: full capacity at
 bootstrap, compacted to `tier_small` when the alive set fits, grown back
 under insert or densify pressure.
+
+Two schedulers run the protocol (`TPU.scheduler`): `InlineBackendScheduler`
+(the default), pumped by the frontend on its own thread, and `BackendThread`,
+the reference's design, a host thread of its own with its own CUDA stream.
+The thread and the frontend share one card with no lock around device work:
+every tensor that crosses between them travels with a CUDA event recorded
+on the producing stream after its last write (`stream_event`), and the
+receiver makes its stream wait on that event and marks the tensor as used on
+its stream (`adopt_on_stream`), so that the caching allocator does not hand
+the block back to the producing stream while the receiver's kernels still
+read it. That, and a map that is never written in place (every mapping step
+builds new tensors), is what the JAX package's `utils/device_lock.py` is
+not needed for: that lock serializes dispatch for a relay-attached TPU.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import queue
-from typing import Dict, List, Optional
+import threading
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +67,58 @@ def next_chunk(chunk: int, drift: float, dilation: float, current: int, map_chun
     return max(1, min(map_chunk, target))
 
 
+def stream_event(device) -> Optional["torch.cuda.Event"]:
+    """An event on the current stream of `device`, after the work queued so
+    far; None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def device_tensors(*objs) -> List[torch.Tensor]:
+    """The tensors inside tensors, dataclasses (maps, keyframes, batches),
+    lists, tuples and dicts."""
+    out: List[torch.Tensor] = []
+    stack = list(objs)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return out
+
+
+def adopt_on_stream(ready, tensors: Iterable[torch.Tensor]) -> None:
+    """Order the current stream after the event `ready` and mark each CUDA
+    tensor as used on it (`Tensor.record_stream`). No-op for `ready` None."""
+    if ready is None:
+        return
+    stream = None
+    for t in tensors:
+        if t.is_cuda:
+            if stream is None:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(ready)
+            t.record_stream(stream)
+    if stream is None:
+        torch.cuda.current_stream().wait_event(ready)
+
+
+def engine_tensors(engine: "BackendEngine") -> List[torch.Tensor]:
+    """Every device tensor the engine holds: the map with its moments, the
+    keyframes' images and depths, the keyframe optimizer's state."""
+    return device_tensors(engine.gmap, engine.kf_state, list(engine.viewpoints.values()),
+                          engine.bg_color)
+
+
 def _next_pow2(x: int) -> int:
     p = 1
     while p < x:
@@ -63,8 +131,9 @@ class BackendEngine:
 
     def __init__(self, config, step_cfg: StepConfig, opt_cfg: MapOptConfig,
                  intr: Intrinsics, raster_cfg: RasterConfig, capacity: int, device,
-                 seed: int = 0):
+                 seed: int = 0, live_mode: bool = False):
         self.config = config
+        self.live_mode = live_mode  # a live camera: a shorter initial BA
         self.cfg = step_cfg
         self.opt_cfg = opt_cfg
         self.intr = intr
@@ -462,7 +531,7 @@ class BackendEngine:
         if not self.initialized:
             if len(self.current_window) == self.window_size:
                 frames_to_optimize = self.window_size - 1
-                iter_per_kf = 300
+                iter_per_kf = 50 if self.live_mode else 300
                 Log("Performing initial BA for initialization")
             else:
                 iter_per_kf = self.mapping_itr_num
@@ -487,10 +556,14 @@ class _BackendProtocol:
     pause/unpause/stop) over a backend_queue/frontend_queue pair, with its
     idle cadence: one background mapping round per idle pass, and a
     10-iteration prune pass plus a frontend sync every 10 un-synced
-    iterations."""
+    iterations. `init` and `keyframe` messages may end with the CUDA event
+    after which their tensors are ready (None off the card); the messages to
+    the frontend always end with one."""
 
     engine: BackendEngine
     single_thread: bool
+    # whether the scheduler runs on a stream of its own (see the module note)
+    cross_stream = False
 
     def _init_protocol(self, engine: BackendEngine, single_thread: bool):
         self.engine = engine
@@ -500,22 +573,32 @@ class _BackendProtocol:
         self.pause = False
         self.last_sent = 0
         self.stopped = False
+        # messages handled by tag, and "idle": the idle rounds that mapped
+        self.handled: collections.Counter = collections.Counter()
+
+    def _ready(self):
+        return stream_event(self.engine.device) if self.cross_stream else None
 
     def push_to_frontend(self, tag: str = "sync_backend") -> None:
         self.last_sent = 0
         e = self.engine
         keyframes = [(idx, np.asarray(e.viewpoints[idx].T_w2c)) for idx in e.current_window]
         snapshot = (e.gmap.params, e.gmap.aux.active)
-        self.frontend_queue.put([tag, snapshot, dict(e.occ_aware_visibility), keyframes])
+        self.frontend_queue.put([tag, snapshot, dict(e.occ_aware_visibility), keyframes,
+                                 self._ready()])
 
     def _idle_round(self) -> None:
         e = self.engine
         if self.stopped or self.pause or not e.current_window or self.single_thread:
             return
+        self.handled["idle"] += 1
         if self.last_sent + e.idle_iters >= 10:
             e.map(iters=e.idle_iters + 10, prune=True)
             self.push_to_frontend()
         else:
+            # enqueue-only round: no harvest; the JAX package defers these
+            # rounds' host work further (`_standing`), which a launch on the
+            # card does not need
             e.map(iters=e.idle_iters, harvest=False)
             self.last_sent += e.idle_iters
 
@@ -532,15 +615,119 @@ class _BackendProtocol:
             e.color_refinement()
             self.push_to_frontend()
         elif tag == "init":
-            _, frame_idx, kf, depth_map = data
+            _, frame_idx, kf, depth_map, *ready = data
+            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map))
             e.handle_init(frame_idx, kf, depth_map)
             self.push_to_frontend("init")
         elif tag == "keyframe":
-            _, frame_idx, kf, window, depth_map = data
+            _, frame_idx, kf, window, depth_map, *ready = data
+            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map))
             e.handle_keyframe(frame_idx, kf, window, depth_map, self.single_thread)
             self.push_to_frontend("keyframe")
         else:
             raise RuntimeError(f"Unprocessed message {tag}")
+        self.handled[tag] += 1
+
+
+class BackendThread(threading.Thread, _BackendProtocol):
+    """The reference's backend: a host thread that handles the protocol's
+    messages as they come and maps in the background between them
+    (`monogs_dev_tpu/core/backend.py::BackendThread`).
+
+    On the card it runs every round on a CUDA stream of its own, made in
+    `run()` (torch's current stream is per thread, and the blend launchers
+    launch on it); `start()` records the caller's stream, whose state the
+    thread takes over. The JAX package's deferred idle batch (`_standing`,
+    `flush_standing`) exists to cut a TPU's per-dispatch cost and is not
+    ported: `map(harvest=False)` already is the enqueue-only round. An
+    exception in `run()` ends the thread and is kept: `check()` raises it
+    (the frontend calls it at every drain of its queue, `SLAM.stop` at the
+    end). `held()` holds the thread between rounds for a reader of the map
+    on another thread (a checkpoint, the eval tail)."""
+
+    cross_stream = True
+
+    def __init__(self, engine: BackendEngine, single_thread: bool = False):
+        super().__init__(daemon=True, name="backend")
+        self._init_protocol(engine, single_thread)
+        self.error: Optional[BaseException] = None
+        self._reported = False
+        # events: the starter's stream at start(), this thread's after its
+        # last work, after the round before a hold, the holder's at release
+        self._start_ready = self._done = self._held_ready = self._release_ready = None
+
+    def start(self) -> None:
+        self._start_ready = stream_event(self.engine.device)
+        super().start()
+
+    def run(self) -> None:
+        dev = self.engine.device
+        try:
+            with (torch.cuda.stream(torch.cuda.Stream(dev)) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                try:
+                    adopt_on_stream(self._start_ready, engine_tensors(self.engine))
+                    while not self.stopped:
+                        try:
+                            data = self.backend_queue.get(timeout=0.005)
+                        except queue.Empty:
+                            self._idle_round()
+                            continue
+                        self._handle(data)
+                finally:
+                    self._done = stream_event(dev)
+        except BaseException as e:  # kept for check(); the thread ends
+            self.error = e
+
+    def _handle(self, data) -> None:
+        if data[0] == "hold":  # see held()
+            _, held, release = data
+            self._held_ready = stream_event(self.engine.device)
+            held.set()
+            release.wait()
+            # the holder may have replaced the map (a resume)
+            adopt_on_stream(self._release_ready, engine_tensors(self.engine))
+            return
+        super()._handle(data)
+
+    def check(self) -> None:
+        """Raise the exception that ended the thread, once."""
+        if self.error is not None and not self._reported:
+            self._reported = True
+            raise RuntimeError("the backend thread failed") from self.error
+
+    @contextlib.contextmanager
+    def held(self):
+        """Hold the thread after the messages queued so far and the round in
+        flight, with the caller's stream ordered after its work; release it
+        on exit. A thread that has ended is joined instead; one not started
+        holds nothing."""
+        if not self.is_alive():
+            if self.ident is not None:
+                self.join()
+            yield
+            return
+        held, release = threading.Event(), threading.Event()
+        self.backend_queue.put(["hold", held, release])
+        try:
+            while not held.wait(0.05):
+                if not self.is_alive():
+                    self.join()
+                    yield
+                    return
+            adopt_on_stream(self._held_ready, engine_tensors(self.engine))
+            yield
+        finally:
+            self._release_ready = stream_event(self.engine.device)
+            release.set()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Join; once the thread has ended, order the caller's stream after
+        its last work and raise its exception (see `check`)."""
+        super().join(timeout)
+        if not self.is_alive():
+            adopt_on_stream(self._done, engine_tensors(self.engine))
+            self.check()
 
 
 class InlineBackendScheduler(_BackendProtocol):

@@ -8,6 +8,14 @@ window bookkeeping stay host-side numpy, as in the reference. A monocular
 run bootstraps from a noisy depth sheet, inserts keyframes with pseudo-depth
 from the render, and counts as initialized once the window is full; a
 keyframe evicted before then resets the system.
+
+With a backend scheduler the frontend talks to the backend through the
+reference's message protocol (core/backend.py); with `BackendThread` the
+messages cross between two host threads and two CUDA streams, each with the
+event after which its tensors are ready. With a `VizChannel` it publishes a
+`GaussianPacket` each tracked frame and takes the viewer's pause requests;
+with `throttle` (a live camera) it holds keyframe frames to at most 3 a
+second, as the reference does.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
-from .backend import BackendEngine
+from .backend import BackendEngine, adopt_on_stream, device_tensors, stream_event
 from .insertion import mono_bootstrap_depth, pseudo_depth_map
 from .keyframe import Keyframe
 from .params import StepConfig
@@ -99,7 +107,7 @@ def add_to_window(cur_frame_idx: int, cur_vis: np.ndarray,
 class FrontEnd:
     def __init__(self, config, dataset, engine: BackendEngine, step_cfg: StepConfig,
                  intr: Intrinsics, raster_cfg: RasterConfig, backend_thread=None,
-                 seed: int = 1):
+                 seed: int = 1, throttle: bool = False, viz_channel=None):
         self.config = config
         self.dataset = dataset
         self.engine = engine
@@ -118,6 +126,9 @@ class FrontEnd:
         self.track_compact_mode = int((config.get("TPU") or {}).get("track_compact", 0))
         self._binned_hist: List[int] = []
         self._compact_m = 0
+        self.throttle = throttle
+        self.viz_channel = viz_channel
+        self.paused = False
 
         training = config["Training"]
         self.monocular = step_cfg.monocular
@@ -162,7 +173,8 @@ class FrontEnd:
 
     def _send(self, msg) -> None:
         if self.backend_thread is not None:
-            self.backend_thread.backend_queue.put(msg)
+            bt = self.backend_thread
+            bt.backend_queue.put(msg + [stream_event(self.device) if bt.cross_stream else None])
             return
         tag = msg[0]
         e = self.engine
@@ -178,7 +190,8 @@ class FrontEnd:
                              {i: np.asarray(kf.T_w2c) for i, kf in e.viewpoints.items()}, tag)
 
     def _adopt_snapshot(self, snapshot, visibility, kf_poses: Dict[int, np.ndarray],
-                        tag: str) -> None:
+                        tag: str, ready=None) -> None:
+        adopt_on_stream(ready, device_tensors(snapshot))
         self.snapshot = snapshot
         self._snapshot_hw = None
         self.occ_aware_visibility = {k: np.asarray(v) for k, v in visibility.items()}
@@ -212,17 +225,29 @@ class FrontEnd:
             if idx > newest and idx not in kf_ids:
                 cam.T_est = cam.T_est @ corr
 
-    def _drain_frontend_queue(self) -> None:
-        if self.backend_thread is None:
+    def _drain_frontend_queue(self, block: bool = False) -> None:
+        """Adopt every message the backend has sent; with `block`, wait up
+        to 2,000 s for the first while the backend lives. Raises what ended
+        a backend thread."""
+        bt = self.backend_thread
+        if bt is None:
             return
-        q = self.backend_thread.frontend_queue
+        check = getattr(bt, "check", None)
+        deadline = time.time() + 2000.0
         while True:
+            if check is not None:
+                check()
             try:
-                tag, snapshot, visibility, keyframes = q.get_nowait()
+                data = bt.frontend_queue.get(timeout=0.05) if block else \
+                    bt.frontend_queue.get_nowait()
             except queue.Empty:
+                if block and bt.is_alive() and time.time() < deadline:
+                    continue
                 return
+            tag, snapshot, visibility, keyframes, ready = data
             self._adopt_snapshot(snapshot, visibility,
-                                 {int(k): np.asarray(T) for k, T in keyframes}, tag)
+                                 {int(k): np.asarray(T) for k, T in keyframes}, tag, ready)
+            block = False
 
     # ------------------------------------------------------------- per frame
 
@@ -366,6 +391,18 @@ class FrontEnd:
                                     self.median_depth, self.cfg.rgb_boundary_threshold)
         return self._valid_rgb_depth(image, depth)
 
+    def _publish(self, track: TrackResult, image) -> None:
+        """This frame's packet for the viewer: the frontend's map snapshot
+        (kept by reference: no map tensor is ever written in place), its
+        host copies, the tracked pose and the keyframe window."""
+        from ..viz.snapshot import GaussianPacket
+
+        params, active = self.snapshot
+        self.viz_channel.publish(GaussianPacket.from_map(
+            params, active, ready=stream_event(self.device),
+            current_frame_T=np.asarray(track.T_w2c), gt_color=image.cpu().numpy(),
+            keyframe_poses=[self.cameras[i].T_est for i in self.current_window]))
+
     def _tally(self, name: str, t0: float) -> None:
         if self.timers is not None:
             self.timers.total[name] += time.time() - t0
@@ -383,18 +420,33 @@ class FrontEnd:
 
         while cur_frame_idx < n_frames:
             self.cur_frame_idx = cur_frame_idx
+            tic = time.time()
             if pump is not None:
                 t0 = time.time()
                 pump()
                 self._tally("pump", t0)
             self._drain_frontend_queue()
+            if self.viz_channel is not None:
+                # the viewer's pause channel
+                ctrl = self.viz_channel.poll_control()
+                if ctrl is not None and ctrl.flag_pause != self.paused:
+                    self.paused = ctrl.flag_pause
+                    if self.backend_thread is not None:
+                        self.backend_thread.backend_queue.put(
+                            ["pause" if self.paused else "unpause"])
+                if self.paused:
+                    time.sleep(0.01)
+                    continue
             if self.requested_init or (
                     (self.single_thread or not self.initialized) and self.requested_keyframe > 0):
                 # wait for the backend: an init, or a keyframe while the
-                # frontend is single-threaded or not yet initialized
+                # frontend is single-threaded or not yet initialized; a
+                # backend thread gets the host while this one sleeps
                 if pump is not None:
                     pump(idle_budget=0)
                     self._drain_frontend_queue()
+                else:
+                    time.sleep(0.005)
                 continue
 
             t0 = time.time()
@@ -415,6 +467,8 @@ class FrontEnd:
                 self.timers.tally("tracking_iters", int(track.n_iters))
             self.cameras[cur_frame_idx] = FrameInfo(cur_frame_idx, track.T_w2c, T_gt,
                                                     track.exposure_ab)
+            if self.viz_channel is not None:
+                self._publish(track, image)
             if self.requested_keyframe > 0:
                 cur_frame_idx += 1
                 continue
@@ -465,6 +519,9 @@ class FrontEnd:
                             depth_map])
                 self._tally("keyframe", t0)
             cur_frame_idx += 1
+            if create_kf and self.throttle:
+                # a live camera: keyframe frames at most 3 a second
+                time.sleep(max(0.01, 1.0 / 3.0 - (time.time() - tic)))
 
         self.cur_frame_idx = cur_frame_idx
         if self.backend_thread is not None:

@@ -6,10 +6,18 @@ Wires config -> dataset -> map -> frontend/backend on one device, runs the
 sequence, and drives the eval tail (ATE, rendering metrics before and after
 colour refinement, PLY export). FPS is total frames over the wall time of
 the frontend run.
+
+`TPU.scheduler` picks the backend's scheduler: "inline" (the default; the
+frontend pumps it on its own thread) or "thread" (`BackendThread`, a host
+thread and CUDA stream of its own); `Dataset.single_thread` runs the backend
+directly instead. `Results.use_gui` opens a `VizChannel` for a viewer, and
+`Dataset.type: realsense` (a live camera) shortens the initial BA and
+throttles keyframe frames, as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import shutil
@@ -25,9 +33,12 @@ from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
 from ..utils.profiling import MetricsLogger, PhaseTimers
-from .backend import BackendEngine, InlineBackendScheduler
+from .backend import BackendEngine, BackendThread, InlineBackendScheduler
 from .frontend import FrontEnd
 from .params import MapOptConfig, StepConfig
+
+
+STOP_TIMEOUT_S = 600.0  # a backend thread ends its round in flight, then stops
 
 
 def resolve_thread_flags(config) -> tuple:
@@ -60,6 +71,7 @@ class SLAM:
         self.device = torch.device(device)
         self.save_dir = save_dir
         self.monocular = config["Dataset"]["sensor_type"] == "monocular"
+        self.live_mode = config["Dataset"]["type"] == "realsense"
         self.step_cfg = StepConfig.from_config(config)
         self.opt_cfg = MapOptConfig.from_config(config)
         self.dataset = load_dataset(config, self.device)
@@ -72,13 +84,24 @@ class SLAM:
         self.single_thread, self.backend_single_thread = resolve_thread_flags(config)
         self.engine = BackendEngine(
             config, self.step_cfg, self.opt_cfg, self.intr, self.raster_cfg,
-            capacity=self.capacity, device=self.device, seed=seed,
+            capacity=self.capacity, device=self.device, seed=seed, live_mode=self.live_mode,
         )
-        self.backend_thread = (None if self.backend_single_thread
-                               else InlineBackendScheduler(self.engine))
+        scheduler = str(tpu.get("scheduler", "inline"))
+        if self.backend_single_thread:
+            self.backend_thread = None
+        elif scheduler == "thread":
+            self.backend_thread = BackendThread(self.engine)
+        else:
+            self.backend_thread = InlineBackendScheduler(self.engine)
+        self.viz_channel = None
+        if config["Results"].get("use_gui", False):
+            from ..viz.snapshot import VizChannel
+
+            self.viz_channel = VizChannel()
         self.frontend = FrontEnd(config, self.dataset, self.engine, self.step_cfg, self.intr,
                                  self.raster_cfg, backend_thread=self.backend_thread,
-                                 seed=seed + 1)
+                                 seed=seed + 1, throttle=self.live_mode,
+                                 viz_channel=self.viz_channel)
         self.fps: float = 0.0
         self.timers = PhaseTimers()
         self.frontend.timers = self.timers
@@ -88,7 +111,9 @@ class SLAM:
         )
 
     def run(self, max_frames: Optional[int] = None) -> None:
-        if self.backend_thread is not None:
+        """Run the frontend up to frame `max_frames`; a later call goes on
+        from there (the backend thread is started once)."""
+        if self.backend_thread is not None and not self.backend_thread.is_alive():
             self.backend_thread.start()
         t0 = time.time()
         self.frontend.run(max_frames=max_frames)
@@ -101,9 +126,22 @@ class SLAM:
         self.metrics.log({"fps": self.fps, "n_frames": n})
 
     def stop(self) -> None:
-        if self.backend_thread is not None:
-            self.backend_thread.backend_queue.put(["stop"])
-            self.backend_thread.join(timeout=30)
+        """Stop the backend and join it; raises what ended a backend thread,
+        and if the thread does not end within STOP_TIMEOUT_S."""
+        bt = self.backend_thread
+        if bt is None:
+            return
+        bt.backend_queue.put(["stop"])
+        bt.join(timeout=STOP_TIMEOUT_S)
+        if bt.is_alive():
+            raise RuntimeError(f"the backend thread did not stop within {STOP_TIMEOUT_S} s")
+
+    def _held(self):
+        """A context in which the map is this thread's to read: a live
+        backend thread is held between rounds."""
+        if isinstance(self.backend_thread, BackendThread):
+            return self.backend_thread.held()
+        return contextlib.nullcontext()
 
     def keyframe_ate(self) -> float:
         """Keyframe-trajectory ATE RMSE (m) against the dataset's GT poses."""
@@ -113,7 +151,8 @@ class SLAM:
                         correct_scale=self.monocular)
 
     def n_alive(self) -> int:
-        return int(self.engine.gmap.aux.active.sum())
+        with self._held():
+            return int(self.engine.gmap.aux.active.sum())
 
     def _eval_rendering(self, tag: str) -> dict:
         e = self.engine
@@ -132,15 +171,29 @@ class SLAM:
         results["ate"] = eval_ate(fe.cameras, fe.kf_indices, self.save_dir, 0, final=True,
                                   monocular=self.monocular)
         if eval_rendering_flag:
+            bt = self.backend_thread
+            threaded = isinstance(bt, BackendThread) and bt.is_alive()
+            if threaded:
+                # no idle rounds through the eval tail: both renders read
+                # the map of one moment, and the drain below waits for the
+                # refinement's own message
+                bt.backend_queue.put(["pause"])
+                with bt.held():
+                    fe._drain_frontend_queue()
             results["before_opt"] = self._eval_rendering("before_opt")
-            if self.backend_thread is not None:
-                self.backend_thread.backend_queue.put(["color_refinement"])
-                self.backend_thread.pump(idle_budget=0)
-                fe._drain_frontend_queue()
+            if bt is not None:
+                bt.backend_queue.put(["color_refinement"])
+                if hasattr(bt, "pump"):
+                    bt.pump(idle_budget=0)
+                    fe._drain_frontend_queue()
+                else:
+                    fe._drain_frontend_queue(block=True)
             else:
                 e.color_refinement()
             results["after_opt"] = self._eval_rendering("after_opt")
             save_gaussians(e.gmap.params, e.gmap.aux.active, self.save_dir, "final", final=True)
+            if threaded and not fe.paused:
+                bt.backend_queue.put(["unpause"])
             self.metrics.log_table(
                 "Metrics", ["tag", "psnr", "ssim", "lpips", "RMSE ATE", "FPS"],
                 [[tag, r["mean_psnr"], r["mean_ssim"], r["mean_lpips"], results["ate"], self.fps]
@@ -156,10 +209,12 @@ class SLAM:
         utils/checkpoint.py) to `path`."""
         from ..utils.checkpoint import save_checkpoint
 
-        if self.backend_thread is not None:  # quiesce the message protocol
-            self.backend_thread.pump(idle_budget=0)
+        bt = self.backend_thread
+        with self._held():  # the messages queued so far handled, then saved
+            if hasattr(bt, "pump"):
+                bt.pump(idle_budget=0)
             self.frontend._drain_frontend_queue()
-        save_checkpoint(path, self.engine, self.frontend)
+            save_checkpoint(path, self.engine, self.frontend)
         Log(f"checkpoint saved to {path}")
         return path
 
@@ -168,7 +223,8 @@ class SLAM:
         a following `run()` continues the sequence. Call before `run()`."""
         from ..utils.checkpoint import restore_checkpoint
 
-        next_frame = restore_checkpoint(path, self.engine, self.frontend)
+        with self._held():
+            next_frame = restore_checkpoint(path, self.engine, self.frontend)
         Log(f"resumed from {path}: {len(self.engine.viewpoints)} keyframes, "
             f"continuing at frame {next_frame}")
         return next_frame

@@ -30,7 +30,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -52,8 +52,13 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
 SOURCES = [os.path.join(_PKG, "csrc", name) for name in SOURCE_FLAGS]
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-# (L1 and L2 are the kernel lab's, ops/blend_lab.py)
+# (L1 and L2 are the kernel lab's, ops/blend_lab.py), through `count_launch`,
+# which also tallies them by the launching thread's name: the frontend, the
+# backend thread and a viewer launch from threads of their own (the blend's
+# backward runs on autograd's device thread)
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "L1": 0, "L2": 0}
+THREAD_LAUNCHES: Dict[str, Dict[str, int]] = {}
+_count_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -63,8 +68,23 @@ _c_float = ctypes.c_float
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        THREAD_LAUNCHES.clear()
+
+
+def count_launch(name: str, variants: Optional[Dict[str, int]] = None,
+                 variant: Optional[str] = None) -> None:
+    """Add one launch of kernel `name` (and of `variants[variant]`) under a
+    lock, so that counts from several host threads add up exactly."""
+    thread = threading.current_thread().name
+    with _count_lock:
+        LAUNCHES[name] += 1
+        per = THREAD_LAUNCHES.setdefault(thread, {})
+        per[name] = per.get(name, 0) + 1
+        if variants is not None:
+            variants[variant] += 1
 
 
 def _nvcc() -> str:
@@ -267,7 +287,7 @@ def blend_forward_cuda(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
     launch, out = forward_launcher(props, counts, tx_n, tile, alpha_clamp, alpha_min, t_min,
                                    emit_touch)
     launch()
-    LAUNCHES["K3" if emit_touch else "K1"] += 1
+    count_launch("K3" if emit_touch else "K1")
     return out
 
 
@@ -277,7 +297,7 @@ def blend_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
     launch, d_props = backward_launcher(props, t_final, n_done, g_color, g_depth, g_alpha,
                                         tx_n, tile, alpha_clamp, alpha_min)
     launch()
-    LAUNCHES["K2"] += 1
+    count_launch("K2")
     return d_props
 
 

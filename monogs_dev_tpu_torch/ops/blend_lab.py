@@ -41,7 +41,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from .blend import (D_IN, LAB_ENTRIES, LAUNCHES, _check, _load, _raise_on, _tile_wh,
+from .blend import (D_IN, LAB_ENTRIES, _check, _load, _raise_on, _tile_wh, count_launch,
                     blend_forward_cuda)
 
 CHUNK = 32
@@ -116,8 +116,7 @@ def lab_forward_cuda(variant, props, counts, tx_n, tile, alpha_clamp=0.99,
     launch, out = lab_forward_launcher(variant, props, counts, tx_n, tile, alpha_clamp,
                                        alpha_min, t_min)
     launch()
-    LAUNCHES["L1"] += 1
-    VARIANT_LAUNCHES[variant] += 1
+    count_launch("L1", VARIANT_LAUNCHES, variant)
     return out
 
 
@@ -299,7 +298,7 @@ def moments_backward_cuda(props, t_final, n_done, g_color, g_depth, g_alpha, tx_
     launch, d_props = moments_launcher(props, t_final, n_done, g_color, g_depth, g_alpha, tx_n,
                                        tile, alpha_clamp, alpha_min)
     launch()
-    LAUNCHES["L2"] += 1
+    count_launch("L2")
     return d_props
 
 

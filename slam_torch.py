@@ -17,6 +17,11 @@ results JSON; artifacts land in results/<dataset>_<datetime>/.
 run, into the results directory or, without one, `checkpoint.npz`;
 `--resume <npz>` restores such a file (from either package) and continues
 the sequence from its next frame.
+
+`TPU.scheduler: thread` in the config runs the backend on a host thread of
+its own (core/backend.py::BackendThread). `Results.use_gui: True` opens the
+viewer (monogs_dev_tpu_torch/viz/gui.py) on a thread when $DISPLAY is set;
+without a display the run goes on and logs that the GUI is off.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import argparse
 import json
 import os
 import sys
+import threading
 
 import torch
 
@@ -56,6 +62,18 @@ def main() -> int:
             "eval_rendering=True")
         config["Results"].update(save_results=True, use_gui=False, eval_rendering=True)
     slam = SLAM(config, device, seed=args.seed, save_dir=make_save_dir(config, args.config))
+    gui = None
+    if slam.viz_channel is not None:
+        if os.environ.get("DISPLAY"):
+            from monogs_dev_tpu_torch.viz.gui import run_gui
+
+            gui = threading.Thread(target=run_gui,
+                                   args=(slam.viz_channel, slam.intr, slam.raster_cfg),
+                                   daemon=True, name="gui")
+            gui.start()
+        else:
+            Log("use_gui=True but no $DISPLAY; GUI disabled "
+                "(use viz.OfflineViewer / export_turntable headless)")
     try:
         if args.resume:
             slam.resume(args.resume)
@@ -76,6 +94,11 @@ def main() -> int:
         print(json.dumps(result, indent=2), flush=True)
     finally:
         slam.stop()
+        if gui is not None:  # the window closes on the finish packet
+            from monogs_dev_tpu_torch.viz.snapshot import GaussianPacket
+
+            slam.viz_channel.publish(GaussianPacket(finish=True))
+            gui.join()
     return 0
 
 

@@ -166,6 +166,57 @@ def test_backward_kernel_is_deterministic(cuda):
 
 
 @pytest.mark.gpu
+def test_two_threads_on_two_streams_match_one(cuda):
+    """Two host threads, each on a CUDA stream of its own (as the frontend
+    and the backend thread run), launch K1 and K2 (through autograd) on the
+    same inputs REPS times: every result equals a single-thread launch bit
+    for bit, and the launch counts add up exactly, by kernel and by thread."""
+    import threading
+
+    reps = 20
+    props, counts = _case_props("l512_mixed", seed=2)
+    p0, c = torch.tensor(props, device=cuda), torch.tensor(counts, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = [torch.randn(shape, generator=g, device=cuda) for shape in ((64, 3, 256), (64, 256), (64, 256))]
+
+    def once():
+        p = p0.clone().requires_grad_(True)
+        out = B.blend_tiles(p, c, TX_N, 16, *CFG)
+        sum((o * wi).sum() for o, wi in zip(out, w)).backward()
+        return [o.detach() for o in out] + [p.grad]
+
+    want = once()
+    torch.cuda.synchronize()
+    B.reset_launch_counts()
+    results, errors = {}, []
+
+    def worker():
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                got = [once() for _ in range(reps)]
+            stream.synchronize()
+            results[threading.current_thread().name] = got
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, name=f"worker{i}") for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert sorted(results) == ["worker0", "worker1"]
+    for name, got in results.items():
+        for r in got:
+            for a, b in zip(r, want):
+                assert torch.equal(a, b), name
+    assert B.LAUNCHES["K1"] == 2 * reps and B.LAUNCHES["K2"] == 2 * reps
+    assert B.THREAD_LAUNCHES["worker0"]["K1"] == B.THREAD_LAUNCHES["worker1"]["K1"] == reps
+    assert sum(n.get("K2", 0) for n in B.THREAD_LAUNCHES.values()) == 2 * reps
+
+
+@pytest.mark.gpu
 def test_launchers_time_the_kernels_alone(cuda):
     """`forward_launcher`/`backward_launcher` relaunch a kernel of either
     version into the same outputs and count nothing."""

@@ -8,7 +8,10 @@ PLY and ATE artifacts work; nothing of the JAX package or of
 where PIL and cv2 fail to import as well (the card machine has neither),
 runs the ingest path the card runs: the TUM loader on the committed
 fixture, the EuRoC writer, loader and matcher on a 2-frame pair, and a
-checkpoint saved and loaded."""
+checkpoint saved and loaded. A third, with matplotlib blocked too, runs
+the tiny RGB-D config with the backend on its own thread
+(`TPU.scheduler: thread`) and the viewer channel open, renders the newest
+packet through `OfflineViewer` and writes a turntable's PNG frames."""
 
 import os
 import subprocess
@@ -143,3 +146,50 @@ def test_ingest_path_without_pil_cv2_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok"), proc.stdout
+
+
+THREADED = r"""
+import os, sys, tempfile
+for name in ("jax", "PIL", "cv2", "matplotlib"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.core.backend import BackendThread
+from monogs_dev_tpu_torch.core.system import SLAM
+from monogs_dev_tpu_torch.data.image_io import read_png
+from monogs_dev_tpu_torch.utils.config import load_config
+from monogs_dev_tpu_torch.viz import OfflineViewer, export_turntable, render_view
+cfg = load_config("configs/synthetic/tiny_rgbd.yaml")
+cfg["Training"]["single_thread"] = False
+cfg["Dataset"]["single_thread"] = False
+cfg["TPU"]["scheduler"] = "thread"
+cfg["Results"]["use_gui"] = True
+slam = SLAM(cfg, "cpu", seed=0)
+assert isinstance(slam.backend_thread, BackendThread)
+slam.run(max_frames=6)
+packet = slam.viz_channel.latest()
+slam.viz_channel.publish(packet)
+slam.stop()
+assert not slam.backend_thread.is_alive() and len(slam.frontend.kf_indices) >= 1
+with tempfile.TemporaryDirectory() as d:
+    path = OfflineViewer(slam.viz_channel, slam.intr, d).tick(packet.params, packet.active)
+    assert read_png(path).shape == (64, 80, 3)
+    grey = render_view(packet.params, packet.active, packet.current_frame_T, slam.intr,
+                       mode="depth")
+    assert np.allclose(grey[..., 0], grey[..., 2])  # no matplotlib: the grey map
+    out = export_turntable(packet.params, packet.active, slam.intr, os.path.join(d, "t.gif"),
+                           n_frames=2)
+    assert sorted(os.listdir(out)) == ["orbit_0000.png", "orbit_0001.png"]  # no PIL: no GIF
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_thread_mode_and_viewer_without_jax_pil_cv2_or_matplotlib():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", THREADED], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "ok", proc.stdout  # after the run's log
