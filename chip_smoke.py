@@ -56,12 +56,24 @@
    against its full render); saves a checkpoint right after that keyframe's
    mapping, checks `load_map` of it against the map bit for bit, resumes
    it in a fresh `SLAM` and runs RESUME_FRAMES more frames (the `tum:`
-   line); the thread phase (`thread_phase`, the `thread:` line): the same
-   checkpoint resumed with `TPU.scheduler: thread` and `Results.use_gui`,
-   a headless viewer thread rendering each packet, the same frames in turns
-   with a second inline resumed run, then on until the backend thread has
-   mapped a keyframe while the frontend tracked, one profiled frame, and
-   the hand-off's snapshot checksums; then writes a EuRoC-layout stereo
+   line); the dp phase (`dp_phase`, the `dp:` lines): the same checkpoint
+   resumed with `TPU.mesh_devices: 2` (a mesh of the visible cards, one on
+   a one-card machine), every mapping round through the data-parallel step,
+   on until the next keyframe's round has mapped, with K1-K3 counted under
+   path `dp`; then one step at full width (10 VGA slots) over the meshes
+   [cuda:0, cuda:0] and [cuda:0], held to each other at
+   tests/test_parallel.py's bounds (on one card the replicas are the lead's
+   own tensors; with two cards [cuda:0, cuda:1] too, its replicas equal to
+   the lead's map bit for bit), and timed beside the single path's mapping
+   iterations; the thread phase (`thread_phase`, the
+   `thread:` line): the same checkpoint resumed with `TPU.scheduler:
+   thread` and `Results.use_gui`, a headless viewer thread rendering each
+   packet, the same frames in turns with a second inline resumed run, then
+   the TUM run's own state one frame before its keyframe resumed into it
+   and on until the backend thread has mapped that keyframe while the
+   frontend tracked, one profiled frame, and the hand-off's snapshot
+   checksums;
+   then writes a EuRoC-layout stereo
    sequence (320x240, EUROC_FRAMES frames)
    and runs the EuRoC base config on it through the rectification and the
    matcher (the `euroc:` line). Both fetch a few frames again under torch's
@@ -79,6 +91,7 @@ is {"ok": true, "device": {...}}; any failed check exits non-zero before it.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import os
 import shutil
@@ -113,8 +126,9 @@ REPLACES = {
 # each burst queued behind ~1 ms of device sleep
 ROUNDS, BURST, SLEEP_CYCLES = 21, 20, 2_000_000
 # monocular frames profiled after the timed window, fewer where the sequence
-# ends first (20 until the parity phase took their time, 8 until the ingest's)
-PROFILE_FRAMES = 4
+# ends first (20 until the parity phase took their time, 8 until the
+# ingest's, 4 until the dp phase's)
+PROFILE_FRAMES = 2
 # profiler kernel names of K1-K3
 PROFILE_NAMES = {"K1": "blend_fwd_kernel_v2<false>", "K3": "blend_fwd_kernel_v2<true>",
                  "K2": "blend_bwd_kernel_v2"}
@@ -129,7 +143,8 @@ PARITY_PROFILE_FRAMES = 1
 RGBD_ATE_BAR = 0.03  # PERF.md section 2
 # ingest phase: the TUM-layout sequence (INGEST_FRAMES frames of the bench
 # scene along bench_vga's orbit at fr3_office's calibration; 64 until the
-# thread phase needed the keyframe after frame 50, which came at frame 76),
+# thread phase needed the keyframe after frame 50, which came at frame 76;
+# now the dp phase runs on to it, at 73, and the thread phase does not),
 # the run's wall budget to its first keyframe after frame 0, the frames run
 # after the resume; the EuRoC-layout stereo sequence
 # (tools/run_fixture_evals.py's rig)
@@ -137,14 +152,25 @@ TUM_CONFIG = os.path.join(REPO, "configs", "rgbd", "tum", "fr3_office.yaml")
 EUROC_CONFIG = os.path.join(REPO, "configs", "stereo", "euroc", "base_config.yaml")
 INGEST_FRAMES = 88
 INGEST_BUDGET_S = 200.0
-RESUME_FRAMES = 8
+RESUME_FRAMES = 3  # 8 until the dp phase took their time
 # thread phase: the wall budget to a keyframe mapped on the backend thread
-# while the frontend tracked on, after the resumed frames; frames profiled
+# while the frontend tracked on, from the TUM run's frame before its
+# keyframe; frames profiled
 THREAD_BUDGET_S = 200.0
 THREAD_PROFILE_FRAMES = 1
+# dp phase: TPU.mesh_devices in the resumed run (a one-device mesh on one
+# card), its wall budget to the next keyframe's data-parallel mapping, the
+# timing rounds of one full-width step and of the single path's iterations
+DP_MESH_DEVICES = 2
+DP_BUDGET_S = 200.0
+DP_STEP_REPS, DP_SINGLE_ITERS = 2, 5
+# tests/test_parallel.py's bounds between meshes: loss rtol, map first
+# moment rtol/atol, poses and exposures atol, the slots' first moment atol
+DP_LOSS_RTOL, DP_MU_RTOL, DP_MU_ATOL, DP_POSE_ATOL, DP_SLOT_MU_ATOL = 1e-5, 1e-4, 1e-7, 1e-6, 1e-7
 # 24 EuRoC frames until the thread phase took their time: with 24, a host as
 # slow as the slowest seen would near the 1,200 s limit (PERF.md section 7)
-EUROC_FRAMES, EUROC_SIZE = 12, (320, 240)
+# 12 until the dp phase took their time; keyframes 0 and 7 either way
+EUROC_FRAMES, EUROC_SIZE = 8, (320, 240)
 EUROC_TPU = {"capacity": 32768, "max_per_tile": 512, "k_dup": 8}
 STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
@@ -1038,9 +1064,17 @@ def tum_ingest(dev, tmp):
         t2 = time.time()
         n = N_FRAMES
         last = INGEST_FRAMES - RESUME_FRAMES
+        # the state after each frame before the keyframe, two files in turn
+        # (for `thread_phase`'s run to a keyframe); the saves are not timed
+        saved, save_s = {}, 0.0
         while len(fe.kf_indices) < 2 and n < last and time.time() - t0 < INGEST_BUDGET_S:
             n += 1
             slam.run(max_frames=n)  # ends with the keyframe's mapping pumped
+            if len(fe.kf_indices) < 2:
+                t_save = time.time()
+                saved[n] = os.path.join(tmp, f"before_keyframe.{n % 2}.npz")
+                slam.save_checkpoint(saved[n])
+                save_s += time.time() - t_save
         torch.cuda.synchronize()
         t3 = time.time()
     finally:
@@ -1076,7 +1110,7 @@ def tum_ingest(dev, tmp):
         "paeth_row_share": paeth,
         "init_and_first_frame_s": t1 - t0,
         "tracked_fps": (N_FRAMES - 2) / (t2 - t1),
-        "frames_12_on_s": t3 - t2,
+        "frames_12_on_s": t3 - t2 - save_s,
         "adam_iters_mean": float(np.mean(iters)),
         "adam_iters_max": int(max(iters)),
         "launches": dict(launches),
@@ -1113,7 +1147,12 @@ def tum_ingest(dev, tmp):
         launches[k] += B.LAUNCHES[k]
     info["launches_with_resume"] = launches
     resumed.stop()
-    thread = thread_phase(config, dev, path, next_frame, tmp, info["resumed_fps"])
+    if n - 1 not in saved:
+        fail(f"tum: the keyframe came at frame {n}, before any state was saved for the "
+             f"thread phase")
+    dp = dp_phase(config, dev, path, next_frame, info["resumed_fps"])
+    thread = thread_phase(config, dev, path, next_frame, tmp, info["resumed_fps"],
+                          saved[n - 1])
     print("tum: " + json.dumps(info), flush=True)
     if len(info["keyframes"]) < 2 or not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
         fail(f"tum: keyframe ATE {info['keyframe_ate_cm']} cm over {info['keyframes']}: "
@@ -1134,7 +1173,7 @@ def tum_ingest(dev, tmp):
           f"{info['checkpoint_bytes']} bytes, save {save_ms:.1f} ms, resume "
           f"{info['resume_ms']:.1f} ms; resumed frames {info['resumed_frames']} keyframe ATE "
           f"{info['resumed_keyframe_ate_cm']:.4f} cm", flush=True)
-    return info, launches, snapshot, thread
+    return info, launches, snapshot, thread, dp
 
 
 class ViewerThread:
@@ -1218,15 +1257,255 @@ class HandoffChecks:
         return [i for i, (a, b) in enumerate(self.pairs) if not bool((a.cpu() == b.cpu()).all())]
 
 
-def thread_phase(config, dev, path, next_frame, tmp, inline_fps):
+def dp_phase(config, dev, path, next_frame, inline_fps):
+    """(a) The checkpoint resumed with `TPU.mesh_devices: DP_MESH_DEVICES`
+    (the config otherwise as committed; on one card a mesh of one device):
+    every mapping round through `_map_dp`, tracked on until the next
+    keyframe's mapping round has run there, then one frame more (within
+    DP_BUDGET_S); K1, K2 and K3 counted from the resume on. (b) One
+    `dp_mapping_step` at full width, the window's keyframes over its 10 VGA
+    slots, over the meshes [cuda:0, cuda:0] and [cuda:0] from the same state,
+    held to each other at tests/test_parallel.py's bounds (the replicas of
+    the one-card mesh are the lead's own tensors); [cuda:0, cuda:1] too
+    where there are two cards, its replicas equal bit for bit; the
+    step's ms at 1 and 2 shards in turns, and the ms an iteration of the
+    single path's `mapping_iterations` over the same window. Returns (info,
+    launches)."""
+    import copy
+
+    import torch
+
+    from monogs_dev_tpu_torch.core.mapping import (KeyframeBatch, make_keyframe_opt_state,
+                                                   mapping_iterations)
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.parallel import (DPBatch, dp_mapping_step, gather,
+                                                 make_dp_opt_state, make_mesh, replicate,
+                                                 shard_batch)
+
+    t_phase = time.time()
+    dcfg = copy.deepcopy(config)
+    dcfg["TPU"]["mesh_devices"] = DP_MESH_DEVICES
+    slam = SLAM(dcfg, dev, seed=0)
+    e, fe = slam.engine, slam.frontend
+    if e.mesh is None or e._dp_step is None:
+        fail("dp: TPU.mesh_devices built no mesh")
+    # (frame, iterations, init mode, keyframe or None) of every _map_dp round
+    rounds = []
+    in_keyframe = [None]
+    map_dp, map_single, handle_keyframe = e._map_dp, e._map_single, e.handle_keyframe
+
+    def record(iters, frames_to_optimize, init_mode=False):
+        rounds.append((fe.cur_frame_idx, int(iters), bool(init_mode), in_keyframe[0]))
+        return map_dp(iters, frames_to_optimize, init_mode)
+
+    def single(*args, **kwargs):
+        fail("dp: a mapping round took the single-device path")
+
+    def keyframe(frame_idx, *args, **kwargs):
+        in_keyframe[0] = frame_idx
+        try:
+            return handle_keyframe(frame_idx, *args, **kwargs)
+        finally:
+            in_keyframe[0] = None
+
+    e._map_dp, e._map_single, e.handle_keyframe = record, single, keyframe
+    torch.cuda.synchronize()
+    B.reset_launch_counts()
+    slam.resume(path)  # its re-harvest is a one-iteration round
+    iters0, kf0, n0 = e.telemetry["map_iters"], len(fe.kf_indices), len(rounds)
+    end = next_frame + RESUME_FRAMES
+    t0 = time.time()
+    slam.run(max_frames=end)
+    torch.cuda.synchronize()
+    info = {"mesh_devices": DP_MESH_DEVICES, "mesh": [str(d) for d in e.mesh.devices],
+            "slots": e._dp_slots, "fps": RESUME_FRAMES / (time.time() - t0),
+            "inline_resumed_fps": inline_fps}
+    n, t0 = end, time.time()
+    while len(fe.kf_indices) <= kf0 and n < INGEST_FRAMES - 1 and time.time() - t0 < DP_BUDGET_S:
+        n += 1
+        slam.run(max_frames=n)  # ends with the keyframe's mapping pumped
+    slam.run(max_frames=n + 1)  # one frame more
+    torch.cuda.synchronize()
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    gmap = e.gmap
+    act = gmap.aux.active
+    info.update(
+        frames_run=[next_frame, n + 1], keyframes=list(fe.kf_indices), rounds=len(rounds),
+        keyframe_rounds=[r for r in rounds if r[3] is not None],
+        map_iters=e.telemetry["map_iters"] - iters0, dp_steps=sum(r[1] for r in rounds[n0:]),
+        slot_adam_count=e._dp_state.count, alive=int(act.sum()),
+        keyframe_ate_cm=100.0 * slam.keyframe_ate(), launches=launches,
+        map_finite=all(bool(torch.isfinite(x[act]).all()) for x in gmap.params.values()),
+        telemetry={k: e.telemetry[k] for k in ("dp_init_iters", "dp_densify_events", "dp_resets",
+                                               "map_iters", "densify_dropped")})
+    print(f"dp: mesh_devices {DP_MESH_DEVICES} built a mesh of {e.mesh.size} device(s) "
+          f"{info['mesh']} ({torch.cuda.device_count()} visible), {e._dp_slots} slots", flush=True)
+    if len(fe.kf_indices) <= kf0 or not info["keyframe_rounds"] \
+            or fe.kf_indices[-1] not in e.viewpoints:
+        fail(f"dp: no keyframe inserted and mapped through _map_dp by frame {n} "
+             f"({DP_BUDGET_S} s budget): {rounds}")
+    if info["map_iters"] != info["dp_steps"]:
+        fail(f"dp: the telemetry counts {info['map_iters']} mapping iterations, the rounds "
+             f"ran {info['dp_steps']}")
+    if not info["map_finite"] or not all(np.isfinite(fe.cameras[i].T_est).all()
+                                         for i in fe.cameras):
+        fail("dp: the map or a pose is not finite")
+    if not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"dp: keyframe ATE {info['keyframe_ate_cm']} cm")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the data-parallel run")
+
+    # (b) one step at full width, over two meshes from the same state: the
+    # window's keyframes (three at this point of the sequence) in turn over
+    # every slot, so that each shard of [cuda:0, cuda:0] renders five
+    b = e._dp_slots
+    ids = [e.current_window[k % len(e.current_window)] for k in range(b)]
+    images, depths = e._stack_slots(ids, b)
+    on = torch.ones(b, dtype=torch.bool, device=dev)
+    kb = KeyframeBatch(
+        images=images, depths=depths,
+        T_w2c=torch.as_tensor(np.stack([e.viewpoints[i].T_w2c for i in ids]), dtype=torch.float32,
+                              device=dev),
+        exposure=torch.as_tensor(np.stack([e.viewpoints[i].exposure for i in ids]),
+                                 dtype=torch.float32, device=dev),
+        valid=on, optimize_pose=torch.tensor([i != 0 for i in ids], device=dev),
+        optimize_exposure=torch.tensor([i != 0 for i in ids], device=dev), apply_exposure=on,
+        harvest_visibility=on)
+    batch = DPBatch(images=kb.images, depths=kb.depths, T_w2c=kb.T_w2c, exposure=kb.exposure,
+                    valid=kb.valid, optimize_pose=kb.optimize_pose,
+                    optimize_exposure=kb.optimize_exposure)
+    it = e.iteration_count
+    noise = torch.zeros((2, 1, 3), device=dev)
+
+    class NoDraws:  # densify is off in these steps
+        @staticmethod
+        def split_noise(budget):
+            return noise
+
+    def run(devices):
+        mesh = make_mesh(device=devices)
+        step = dp_mapping_step(mesh, e.cfg, e.opt_cfg, e.intr, e.raster_cfg,
+                               use_depth=e.use_depth, update_every=1 << 30, update_offset=0,
+                               size_threshold=e.size_threshold)
+        sharded = shard_batch(mesh, batch)
+
+        def once():
+            return step(gmap, sharded, make_dp_opt_state(e._dp_slots, dev), it, NoDraws(),
+                        e.gaussian_th, e.gaussian_extent)
+        return mesh, once
+
+    def held(a, b, label):
+        """tests/test_parallel.py's bounds between two steps' results."""
+        (ga, ba, oa, la, _), (gb, bb, ob, lb, _) = a, b
+        errs = {"loss": abs(float(la) - float(lb)) / abs(float(lb))}
+        mu_ok = True
+        for (name, x), (_, y) in zip(_map_fields(ga), _map_fields(gb)):
+            if name.startswith("adam_mu.") and x.numel():
+                errs[name] = float((x - y).abs().max())
+                mu_ok &= bool(((x - y).abs() <= DP_MU_ATOL + DP_MU_RTOL * y.abs()).all())
+        errs["T_w2c"] = float((gather(ba.T_w2c, dev) - gather(bb.T_w2c, dev)).abs().max())
+        errs["exposure"] = float((gather(ba.exposure, dev) - gather(bb.exposure, dev))
+                                 .abs().max())
+        errs["slot_mu"] = float((gather(oa.mu, dev) - gather(ob.mu, dev)).abs().max())
+        finite = all(bool(torch.isfinite(x).all()) for _, x in _map_fields(ga)
+                     if x.is_floating_point()) and np.isfinite(float(la))
+        ok = (finite and errs["loss"] <= DP_LOSS_RTOL and errs["T_w2c"] <= DP_POSE_ATOL
+              and errs["exposure"] <= DP_POSE_ATOL and errs["slot_mu"] <= DP_SLOT_MU_ATOL
+              and mu_ok)
+        print(f"dp step {label}: " + json.dumps(errs), flush=True)
+        if not ok:
+            fail(f"dp step {label}: outside the bounds (or not finite): {errs}")
+        return errs
+
+    def replicas_equal(mesh, out):
+        """Every replica of a mesh whose shards lie on distinct cards equals
+        the lead's map bit for bit."""
+        g = out[0]
+        return all(torch.equal(a.to(dev), g.aux.active) and
+                   all(torch.equal(x.to(dev), y) for x, y in zip(p.values(), g.params.values()))
+                   for p, a in replicate(mesh, g.params, g.aux.active)[1:])
+
+    def replicas_shared(mesh, out):
+        """On one card `replicate` copies nothing: every replica is the
+        lead's own tensors (so their equality says nothing there)."""
+        g = out[0]
+        return all(a is g.aux.active and all(x is y for x, y in zip(p.values(),
+                                                                    g.params.values()))
+                   for p, a in replicate(mesh, g.params, g.aux.active))
+
+    cuda0 = torch.device(dev)  # cuda:0
+    mesh1, one = run([cuda0])
+    mesh2, two = run([cuda0, cuda0])
+    out1, out2 = one(), two()
+    info["step_2_vs_1"] = held(out2, out1, "[cuda:0, cuda:0] vs [cuda:0]")
+    if not replicas_shared(mesh2, out2):
+        fail("dp step: [cuda:0, cuda:0] copied the map on its one card")
+    del out1, out2
+    times = {1: [], 2: []}
+    for n_shards, fn in ((1, one), (2, two), (2, two), (1, one)) * DP_STEP_REPS:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times[n_shards].append(1e3 * (time.time() - t0))
+    info["step_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    if torch.cuda.device_count() >= 2:
+        mesh_b, two_cards = run([cuda0, torch.device("cuda", 1)])
+        out_b = two_cards()
+        info["step_two_cards_vs_1"] = held(out_b, one(), "[cuda:0, cuda:1] vs [cuda:0]")
+        if not replicas_equal(mesh_b, out_b):
+            fail("dp step: the replicas of [cuda:0, cuda:1] are not equal bit for bit")
+        info["replicas_equal"] = True
+    else:
+        info["step_two_cards_vs_1"] = "not run: one visible card"
+        info["replicas_equal"] = "not run: one visible card"
+        print("dp step [cuda:0, cuda:1] and its replicas' equality: not run (one visible "
+              "card; on [cuda:0, cuda:0] the replicas are the lead's own tensors)", flush=True)
+
+    class Draws:
+        @staticmethod
+        def begin_iteration():
+            pass
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mapping_iterations(gmap, kb, make_keyframe_opt_state(e._dp_slots, dev), it, Draws(),
+                       e.bg_color, e.gaussian_th, e.gaussian_extent, e.cfg, e.opt_cfg, e.intr,
+                       e.raster_cfg, iters=DP_SINGLE_ITERS, update_every=1 << 30,
+                       update_offset=0, reset_interval=1 << 30,
+                       size_threshold=e.size_threshold, use_depth=e.use_depth,
+                       init_mode=False)
+    torch.cuda.synchronize()
+    info["single_ms_per_iteration"] = 1e3 * (time.time() - t0) / DP_SINGLE_ITERS
+    info["phase_s"] = time.time() - t_phase
+    slam.stop()
+    print("dp: " + json.dumps(info), flush=True)
+    print(f"dp: frames/s {info['fps']:.4f} against the inline resumed run's {inline_fps:.4f} "
+          f"(frames [{next_frame}, {end})); keyframes {info['keyframes']}, keyframe rounds "
+          f"{info['keyframe_rounds']}, mapping iterations {info['map_iters']} in "
+          f"{info['rounds']} rounds; keyframe ATE {info['keyframe_ate_cm']:.4f} cm; launches "
+          f"{launches}; one step at {e._dp_slots} VGA slots {info['step_ms'][1]:.1f} ms on 1 "
+          f"shard, {info['step_ms'][2]:.1f} ms on 2 (same card), single path "
+          f"{info['single_ms_per_iteration']:.1f} ms an iteration; phase "
+          f"{info['phase_s']:.1f} s | {smi_line()}", flush=True)
+    return info, launches
+
+
+def thread_phase(config, dev, path, next_frame, tmp, inline_fps, before_keyframe):
     """The checkpoint resumed with the backend on its own thread and stream
     (`TPU.scheduler: thread`) and the viewer channel open (`Results.use_gui`),
     a headless viewer rendering each new packet on a thread of its own: the
     RESUME_FRAMES frames, in turns with a second inline resumed run over
-    them (the first ran in `tum_ingest`); then on, frame by frame, until the
-    backend thread has mapped a keyframe while the frontend tracked on
-    (within THREAD_BUDGET_S), and THREAD_PROFILE_FRAMES profiled frames.
-    Returns (info, launches by path)."""
+    them (the first ran in `tum_ingest`); then `before_keyframe`, the TUM
+    run's own state one frame before its keyframe, resumed into the same
+    thread-mode `SLAM` and run on, frame by frame, until the backend thread
+    has mapped that keyframe while the frontend tracked on (within
+    THREAD_BUDGET_S), and THREAD_PROFILE_FRAMES profiled frames. (Until the
+    dp phase took their time, this run tracked on in thread mode from the
+    resumed frames to the next keyframe, 76.) Returns (info, launches by
+    path)."""
     import copy
 
     import torch
@@ -1286,15 +1565,17 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps):
         del inline
         bt.backend_queue.put(["unpause"])
 
-        # on until a keyframe was mapped on the thread while the frontend tracked
+        # from the TUM run's frame before its keyframe, on until that keyframe
+        # was mapped on the thread while the frontend tracked
         B.reset_launch_counts()
-        n, t0 = end, time.time()
+        n, t0 = slam.resume(before_keyframe), time.time()
+        info["before_keyframe_frame"] = n
         last = INGEST_FRAMES - THREAD_PROFILE_FRAMES
         while (bt.handled["keyframe"] < 1 or checks.tracked_in_flight < 1) and n < last \
                 and time.time() - t0 < THREAD_BUDGET_S:
             n += 1
             slam.run(max_frames=n)
-        info["frames_run"] = [next_frame, n]
+        info["frames_run"] = [[next_frame, end], [info["before_keyframe_frame"], n]]
         info["profile"] = profile_frames("thread", slam, n, THREAD_PROFILE_FRAMES,
                                          1e3 / info["thread_fps"])
         tally("thread")
@@ -1332,7 +1613,8 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps):
     prof = info["profile"] or {}
     print(f"thread: frames/s {info['thread_fps']:.4f} against inline "
           f"{info['inline_fps'][0]:.4f} (before) and {info['inline_fps'][1]:.4f} (after), "
-          f"frames [{next_frame}, {end}); idle rounds {info['idle_rounds']}, mapping "
+          f"frames [{next_frame}, {end}); then frames [{info['before_keyframe_frame']}, {n}) "
+          f"from the TUM run's state; idle rounds {info['idle_rounds']}, mapping "
           f"iterations {info['map_iters']}; frames tracked while a keyframe mapped "
           f"{info['tracked_in_flight']}; keyframes handled {info['keyframes_handled']}, "
           f"keyframes {info['keyframes']}, keyframe ATE {info['keyframe_ate_cm']:.4f} cm; viewer "
@@ -1437,16 +1719,20 @@ def ingest_phase(dev):
 
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="ingest_") as tmp:
-        tum, tum_launches, snapshot, (thread, thread_launches) = tum_ingest(dev, tmp)
+        tum, tum_launches, snapshot, (thread, thread_launches), (dp, dp_launches) = \
+            tum_ingest(dev, tmp)
         euroc, euroc_launches = euroc_ingest(dev, tmp)
     print(f"ingest: phase {time.time() - t0:.1f} s", flush=True)
-    return (tum, euroc, thread, {"tum_vga": tum_launches, "euroc": euroc_launches,
-                                 **thread_launches}, snapshot)
+    return (tum, euroc, thread, dp, {"tum_vga": tum_launches, "euroc": euroc_launches,
+                                     "dp": dp_launches, **thread_launches}, snapshot)
 
 
 
 def main() -> int:
     t_start = time.time()
+    # a fatal signal (a crash in native code) prints every thread's Python
+    # stack to stderr before the process dies
+    faulthandler.enable(all_threads=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -1487,8 +1773,9 @@ def main() -> int:
     lab_launches, sets["lab"] = timed("lab", lab_phase, dev)
     mono, mono_snap, intr, rcfg, dilate = timed("mono", mono_phase, load_config(CONFIG), dev)
     sets.update(timed("kernels mono map", map_kernel_phase, [mono_snap], intr, rcfg, dilate))
-    tum, euroc, thread, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
+    tum, euroc, thread, dp, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
     phase_s["thread (in ingest)"] = thread["phase_s"]
+    phase_s["dp (in ingest)"] = dp["phase_s"]
     tum_cfg = load_config(TUM_CONFIG)
     cal = tum_cfg["Dataset"]["Calibration"]
     from monogs_dev_tpu_torch.core.params import StepConfig

@@ -1,11 +1,16 @@
-"""Mapping backend: host orchestration around the mapping loop (port of the
-single-device path of `monogs_dev_tpu/core/backend.py`).
+"""Mapping backend: host orchestration around the mapping loop (port of
+`monogs_dev_tpu/core/backend.py`).
 
 Owns the map, the keyframe store, the occlusion-aware visibility and the
 window optimizer state; runs the init/keyframe/idle mapping rounds of the
 reference message protocol. The map's row count is a tier: full capacity at
 bootstrap, compacted to `tier_small` when the alive set fits, grown back
 under insert or densify pressure.
+
+`TPU.mesh_devices: N` (N > 1) routes every mapping phase, the init BA
+included, through the data-parallel step of `parallel/mesh.py` (`_map_dp`);
+on one card the mesh has one device and the step runs there. Without the key
+no mesh is built and mapping runs `_map_single`.
 
 Two schedulers run the protocol (`TPU.scheduler`): `InlineBackendScheduler`
 (the default), pumped by the frontend on its own thread, and `BackendThread`,
@@ -96,27 +101,35 @@ def device_tensors(*objs) -> List[torch.Tensor]:
     return out
 
 
-def adopt_on_stream(ready, tensors: Iterable[torch.Tensor]) -> None:
-    """Order the current stream after the event `ready` and mark each CUDA
-    tensor as used on it (`Tensor.record_stream`). No-op for `ready` None."""
+def adopt_on_stream(ready, tensors: Iterable[torch.Tensor], device=None) -> None:
+    """Order the current stream of `device` (the card `ready` was recorded
+    on; the current card if None) after the event `ready`, and that of every
+    other card holding one of `tensors` (a mesh's shards), and mark each
+    CUDA tensor as used on its own card's current stream
+    (`Tensor.record_stream`). No-op for `ready` None."""
     if ready is None:
         return
-    stream = None
+    streams: Dict[int, "torch.cuda.Stream"] = {}
+
+    def stream_on(dev: torch.device):
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if index not in streams:
+            streams[index] = torch.cuda.current_stream(index)
+            streams[index].wait_event(ready)
+        return streams[index]
+
+    stream_on(torch.device("cuda") if device is None else torch.device(device))
     for t in tensors:
         if t.is_cuda:
-            if stream is None:
-                stream = torch.cuda.current_stream(t.device)
-                stream.wait_event(ready)
-            t.record_stream(stream)
-    if stream is None:
-        torch.cuda.current_stream().wait_event(ready)
+            t.record_stream(stream_on(t.device))
 
 
 def engine_tensors(engine: "BackendEngine") -> List[torch.Tensor]:
     """Every device tensor the engine holds: the map with its moments, the
-    keyframes' images and depths, the keyframe optimizer's state."""
+    keyframes' images and depths, the keyframe optimizers' state (the
+    data-parallel one's too)."""
     return device_tensors(engine.gmap, engine.kf_state, list(engine.viewpoints.values()),
-                          engine.bg_color)
+                          engine.bg_color, engine._dp_state)
 
 
 def _next_pow2(x: int) -> int:
@@ -177,6 +190,14 @@ class BackendEngine:
         self.tier_small = min(_next_pow2(self.tier_small), capacity)
         self.gen = torch.Generator().manual_seed(seed)
         self.np_rng = np.random.default_rng(seed)
+        # data-parallel mapping over a mesh (parallel/mesh.py); the per-slot
+        # Adam state `_dp_state` lives across rounds, keyframes and resets
+        self.mesh_devices = int(tpu_grp.get("mesh_devices", 0))
+        self.mesh = None
+        self._dp_step = None
+        self._dp_state = None
+        if self.mesh_devices > 1:
+            self._init_dp()
         self.reset()
 
     # ------------------------------------------------------------------ state
@@ -201,6 +222,9 @@ class BackendEngine:
             "max_bulk_drift": 0.0,
             "map_compactions": 0,
             "map_grows": 0,
+            "dp_init_iters": 0,  # init-BA iterations run through the mesh
+            "dp_densify_events": 0,
+            "dp_resets": 0,
         }
 
     def _point_draws(self):
@@ -209,6 +233,10 @@ class BackendEngine:
 
     def _mapping_draws(self):
         """Random source of one mapping dispatch (see TorchDraws)."""
+        return TorchDraws(self.gen)
+
+    def _dp_draws(self):
+        """Random source of one data-parallel step (its densify noise)."""
         return TorchDraws(self.gen)
 
     # ------------------------------------------------------ capacity tiers
@@ -386,7 +414,10 @@ class BackendEngine:
             return
         if frames_to_optimize is None:
             frames_to_optimize = self.pose_window
-        last_batch, slot_ids = self._map_single(iters, init_mode, frames_to_optimize)
+        if self._dp_step is not None:
+            last_batch, slot_ids = self._map_dp(iters, frames_to_optimize, init_mode)
+        else:
+            last_batch, slot_ids = self._map_single(iters, init_mode, frames_to_optimize)
         if last_batch is not None and harvest:
             self._harvest_tail(last_batch, slot_ids)
         if prune and len(self.current_window) == self.window_size:
@@ -450,6 +481,96 @@ class BackendEngine:
         if batch is not None:
             self._writeback(batch, slot_ids)
         return batch, slot_ids
+
+    # ------------------------------------------------------- DP mapping path
+
+    def _init_dp(self) -> None:
+        """The mesh and the two data-parallel steps: the normal one and the
+        init-BA one (init_gaussian_update at offset 1, no screen-size prune)."""
+        from ..parallel import dp_mapping_step, make_mesh
+        from ..parallel.mesh import device_with_index
+
+        n = self.mesh_devices
+        self.mesh = make_mesh(n, self.device)
+        if self.mesh.lead != device_with_index(self.device):
+            raise ValueError(f"the mesh's lead {self.mesh.lead} is not the map's {self.device}")
+        # slots padded to a multiple of the mesh size; the extra slots ride
+        # along unused (valid False)
+        slots = -(-self.cfg.window_slots // n) * n
+        self._dp_slots = -(-slots // self.mesh.size) * self.mesh.size
+        args = (self.mesh, self.cfg, self.opt_cfg, self.intr, self.raster_cfg)
+        self._dp_step = dp_mapping_step(
+            *args, use_depth=self.use_depth, update_every=self.gaussian_update_every,
+            update_offset=self.gaussian_update_offset, size_threshold=self.size_threshold)
+        self._dp_step_init = dp_mapping_step(
+            *args, use_depth=self.use_depth, update_every=self.init_gaussian_update,
+            update_offset=1, size_threshold=0.0)
+        Log(f"DP mapping enabled: {self.mesh.size}-device mesh for mesh_devices {n}, "
+            f"{self._dp_slots} slots", tag="MonoGS-TPU")
+
+    def _map_dp(self, iters: int, frames_to_optimize: int, init_mode: bool = False):
+        """Data-parallel mapping round: one `dp_mapping_step` an iteration
+        over the mesh, as the JAX package's `_map_dp`. Densify fires inside
+        the step at the phase's cadence; the opacity reset goes between
+        steps: the global reset at init_gaussian_reset in the init BA, else
+        the non-visible one at gaussian_reset (K3 renders the window's
+        visibility). Where this differs from `_map_single` it follows the
+        JAX path: the batch is built once a round (the random slots are not
+        redrawn), every iteration projects and bins every slot afresh, and
+        the slots' Adam moments `_dp_state` carry across rounds and
+        keyframes."""
+        from ..models.gaussians import reset_opacity, reset_opacity_nonvisible
+        from ..parallel import DPBatch, gather, make_dp_opt_state, shard_batch
+
+        step_fn = self._dp_step_init if init_mode else self._dp_step
+        g_th = self.init_gaussian_th if init_mode else self.gaussian_th
+        g_extent = self.init_gaussian_extent if init_mode else self.gaussian_extent
+        upd_every = self.init_gaussian_update if init_mode else self.gaussian_update_every
+        upd_offset = 1 if init_mode else self.gaussian_update_offset
+
+        b = self._dp_slots
+        kb, slot_ids = self._build_batch(not init_mode, frames_to_optimize, b)
+        batch = shard_batch(self.mesh, DPBatch(
+            images=kb.images, depths=kb.depths, T_w2c=kb.T_w2c, exposure=kb.exposure,
+            valid=kb.valid, optimize_pose=kb.optimize_pose,
+            optimize_exposure=kb.optimize_exposure))
+        if self._dp_state is None or self._dp_state.n_slots != b:
+            self._dp_state = make_dp_opt_state(b, self.device)
+        opt = self._dp_state
+        gmap = self.gmap
+        dropped = 0
+        for _ in range(int(iters)):
+            it_next = self.iteration_count + 1
+            do_update = (it_next % upd_every) == upd_offset
+            if do_update:
+                self.telemetry["dp_densify_events"] += 1
+            if init_mode:
+                if it_next == self.init_gaussian_reset:
+                    gmap = reset_opacity(gmap, 0.01)
+                    self.telemetry["dp_resets"] += 1
+            elif (it_next % self.gaussian_reset) == 0 and not do_update:
+                self.telemetry["dp_resets"] += 1
+                kb_now = dataclasses.replace(kb, T_w2c=gather(batch.T_w2c, self.device),
+                                             exposure=gather(batch.exposure, self.device))
+                vis = harvest_visibility(gmap, kb_now, self.bg_color, self.cfg, self.intr,
+                                         self.raster_cfg)
+                vis_union = (vis & kb.harvest_visibility[:, None]).any(dim=0)
+                gmap = reset_opacity_nonvisible(gmap, vis_union, 0.4)
+            gmap, batch, opt, _, n_dropped = step_fn(gmap, batch, opt, self.iteration_count,
+                                                     self._dp_draws(), g_th, g_extent)
+            self.iteration_count += 1
+            dropped += n_dropped
+        self.gmap = gmap
+        self._dp_state = opt
+        last_batch = dataclasses.replace(kb, T_w2c=gather(batch.T_w2c, self.device),
+                                         exposure=gather(batch.exposure, self.device))
+        self._writeback(last_batch, slot_ids)
+        self.telemetry["densify_dropped"] += int(dropped)
+        self.telemetry["map_iters"] += int(iters)
+        self.telemetry["map_chunks"] += 1
+        if init_mode:
+            self.telemetry["dp_init_iters"] += int(iters)
+        return last_batch, slot_ids
 
     @staticmethod
     def _next_map_event(start: int, update_every: int, update_offset: int,
@@ -616,12 +737,14 @@ class _BackendProtocol:
             self.push_to_frontend()
         elif tag == "init":
             _, frame_idx, kf, depth_map, *ready = data
-            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map))
+            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map),
+                            e.device)
             e.handle_init(frame_idx, kf, depth_map)
             self.push_to_frontend("init")
         elif tag == "keyframe":
             _, frame_idx, kf, window, depth_map, *ready = data
-            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map))
+            adopt_on_stream(ready[0] if ready else None, device_tensors(kf, depth_map),
+                            e.device)
             e.handle_keyframe(frame_idx, kf, window, depth_map, self.single_thread)
             self.push_to_frontend("keyframe")
         else:
@@ -637,13 +760,17 @@ class BackendThread(threading.Thread, _BackendProtocol):
     On the card it runs every round on a CUDA stream of its own, made in
     `run()` (torch's current stream is per thread, and the blend launchers
     launch on it); `start()` records the caller's stream, whose state the
-    thread takes over. The JAX package's deferred idle batch (`_standing`,
-    `flush_standing`) exists to cut a TPU's per-dispatch cost and is not
-    ported: `map(harvest=False)` already is the enqueue-only round. An
-    exception in `run()` ends the thread and is kept: `check()` raises it
-    (the frontend calls it at every drain of its queue, `SLAM.stop` at the
-    end). `held()` holds the thread between rounds for a reader of the map
-    on another thread (a checkpoint, the eval tail)."""
+    thread takes over. A mesh's other cards (`TPU.mesh_devices`) keep their
+    default streams in both threads, so the work there is ordered by the
+    stream itself; every hand-off also orders them after the event and marks
+    their tensors there (`adopt_on_stream` with the engine's card). The JAX
+    package's deferred idle batch (`_standing`, `flush_standing`) exists to
+    cut a TPU's per-dispatch cost and is not ported: `map(harvest=False)`
+    already is the enqueue-only round. An exception in `run()` ends the
+    thread and is kept: `check()` raises it (the frontend calls it at every
+    drain of its queue, `SLAM.stop` at the end). `held()` holds the thread
+    between rounds for a reader of the map on another thread (a checkpoint,
+    the eval tail)."""
 
     cross_stream = True
 
@@ -666,7 +793,7 @@ class BackendThread(threading.Thread, _BackendProtocol):
             with (torch.cuda.stream(torch.cuda.Stream(dev)) if dev.type == "cuda"
                   else contextlib.nullcontext()):
                 try:
-                    adopt_on_stream(self._start_ready, engine_tensors(self.engine))
+                    adopt_on_stream(self._start_ready, engine_tensors(self.engine), dev)
                     while not self.stopped:
                         try:
                             data = self.backend_queue.get(timeout=0.005)
@@ -686,7 +813,7 @@ class BackendThread(threading.Thread, _BackendProtocol):
             held.set()
             release.wait()
             # the holder may have replaced the map (a resume)
-            adopt_on_stream(self._release_ready, engine_tensors(self.engine))
+            adopt_on_stream(self._release_ready, engine_tensors(self.engine), self.engine.device)
             return
         super()._handle(data)
 
@@ -715,7 +842,7 @@ class BackendThread(threading.Thread, _BackendProtocol):
                     self.join()
                     yield
                     return
-            adopt_on_stream(self._held_ready, engine_tensors(self.engine))
+            adopt_on_stream(self._held_ready, engine_tensors(self.engine), self.engine.device)
             yield
         finally:
             self._release_ready = stream_event(self.engine.device)
@@ -726,7 +853,7 @@ class BackendThread(threading.Thread, _BackendProtocol):
         its last work and raise its exception (see `check`)."""
         super().join(timeout)
         if not self.is_alive():
-            adopt_on_stream(self._done, engine_tensors(self.engine))
+            adopt_on_stream(self._done, engine_tensors(self.engine), self.engine.device)
             self.check()
 
 

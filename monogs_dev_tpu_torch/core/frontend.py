@@ -191,7 +191,7 @@ class FrontEnd:
 
     def _adopt_snapshot(self, snapshot, visibility, kf_poses: Dict[int, np.ndarray],
                         tag: str, ready=None) -> None:
-        adopt_on_stream(ready, device_tensors(snapshot))
+        adopt_on_stream(ready, device_tensors(snapshot), self.device)
         self.snapshot = snapshot
         self._snapshot_hw = None
         self.occ_aware_visibility = {k: np.asarray(v) for k, v in visibility.items()}

@@ -12,7 +12,11 @@ frontend pumps it on its own thread) or "thread" (`BackendThread`, a host
 thread and CUDA stream of its own); `Dataset.single_thread` runs the backend
 directly instead. `Results.use_gui` opens a `VizChannel` for a viewer, and
 `Dataset.type: realsense` (a live camera) shortens the initial BA and
-throttles keyframe frames, as in the reference.
+throttles keyframe frames, as in the reference. `TPU.mesh_devices: N` maps
+data-parallel (`parallel/mesh.py`): the engine builds the mesh and logs its
+devices, and a data-parallel round is one round to the schedulers, so a
+thread's hold waits for it and the mesh's state travels with the engine's
+tensors at every hand-off (`backend.engine_tensors`).
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@ class GaussianPacket:
         from ..geometry.sh import sh_to_rgb
         from ..models.gaussians import activations
 
-        adopt_on_stream(ready, device_tensors(params, active))
+        adopt_on_stream(ready, device_tensors(params, active), active.device)
         with torch.no_grad():
             scales, _, opacity = activations(params)
             rgb = torch.clamp(sh_to_rgb(params.f_dc[:, 0, :]), 0.0, 1.0)
@@ -65,7 +65,8 @@ class GaussianPacket:
         tensors as used there (see `core/backend.py::adopt_on_stream`)."""
         from ..core.backend import adopt_on_stream, device_tensors
 
-        adopt_on_stream(self.ready, device_tensors(self.params, self.active))
+        adopt_on_stream(self.ready, device_tensors(self.params, self.active),
+                        self.active.device)
 
 
 @dataclasses.dataclass

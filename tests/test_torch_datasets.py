@@ -23,6 +23,9 @@ package's (`monogs_dev_tpu/data/datasets.py`), which read with PIL and cv2.
   `render_median_depth` with the same scene: colour equal on >= 99.9% of
   values and within 1 level elsewhere, uint16 depth within 1 unit on
   >= 99.5% of pixels.
+- Scenes: every config under configs/synthetic/ (and surface_160 at seeds 1
+  and 2) finds its committed scene npz, with the generator settings the
+  config asks for, and the npz holds the JAX package's scene.
 """
 
 import glob
@@ -379,3 +382,40 @@ def test_load_dataset_factory(tmp_path, monkeypatch):
         T.load_dataset(_cfg("realsense", "", _calib()), "cpu")
     with pytest.raises(ValueError, match="Unknown dataset type"):
         T.load_dataset(_cfg("nope", "", _calib()), "cpu")
+
+
+SYNTHETIC_CONFIGS = [(os.path.basename(p), 0) for p in
+                     sorted(glob.glob(os.path.join(REPO, "configs", "synthetic", "*.yaml")))]
+
+
+@pytest.mark.parametrize("name,seed", SYNTHETIC_CONFIGS + [("surface_160.yaml", 1),
+                                                            ("surface_160.yaml", 2)])
+def test_synthetic_configs_have_their_scene(name, seed):
+    """`SyntheticDataset` loads the committed scene (its `want` check on
+    gaussian_scale and the surface extents passes), and the npz equals the
+    JAX package's draw on its first and last Gaussians."""
+    import jax
+
+    from monogs_dev_tpu.data.synthetic import make_surface_scene, make_synthetic_scene
+    from monogs_dev_tpu_torch.data.synthetic import SyntheticDataset
+    from monogs_dev_tpu_torch.utils.config import load_config as t_load_config
+
+    cfg = t_load_config(os.path.join(REPO, "configs", "synthetic", name))
+    if seed:
+        cfg["Dataset"]["seed"] = seed
+    ds = cfg["Dataset"]
+    assert "scene_file" not in ds
+    scene = SyntheticDataset(cfg, "cpu").scene_params
+    n = int(ds.get("n_gaussians", 2000))
+    assert scene.xyz.shape == (n, 3)
+    key = jax.random.PRNGKey(int(ds.get("seed", 0)))
+    if ds.get("scene", "blobs") == "surface":
+        ref, _ = make_surface_scene(key, n=n, scale=float(ds.get("gaussian_scale", 0.035)),
+                                    extent_x=float(ds.get("extent_x", 5.0)),
+                                    extent_y=float(ds.get("extent_y", 3.0)))
+    else:
+        ref, _ = make_synthetic_scene(key, n=n, scale=float(ds.get("gaussian_scale", 0.06)))
+    for rows in (slice(0, 8), slice(n - 8, n)):
+        np.testing.assert_array_equal(scene.xyz[rows].numpy(), np.asarray(ref.xyz)[rows])
+        np.testing.assert_array_equal(scene.log_scales[rows].numpy(),
+                                      np.asarray(ref.log_scales)[rows])

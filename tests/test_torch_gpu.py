@@ -27,6 +27,7 @@ footprints of about a pixel, so that most warps miss most entries (the
 per-warp skips); `l128_edge` mixes in opacities under alpha_min,
 conics near singular and footprints wider than a tile."""
 
+import functools
 import os
 
 import numpy as np
@@ -546,3 +547,118 @@ def test_tum_loader_on_cuda_returns_cuda_tensors(cuda):
     ref = ds_cpu[3]
     assert torch.equal(image.cpu(), ref[0]) and torch.equal(depth.cpu(), ref[1])
     assert np.array_equal(pose, ref[2])
+
+
+def _blob_scene(n, dev, seed=0, scale=0.08):
+    """tests/test_rasterizer.py::make_scene's distribution, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    rgb = rng.uniform(0.1, 0.9, (n, 3))
+    arrays = dict(
+        xyz=np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n), rng.uniform(2, 6, n)], -1),
+        f_dc=((rgb - 0.5) / 0.28209479177387814)[:, None, :], f_rest=np.zeros((n, 0, 3)),
+        log_scales=np.full((n, 3), np.log(scale)),
+        quats=q / np.linalg.norm(q, axis=-1, keepdims=True),
+        opacity_logit=np.full(n, np.log(0.7 / 0.3)))
+    return GaussianParams(**{k: torch.tensor(v, dtype=torch.float32, device=dev)
+                             for k, v in arrays.items()})
+
+
+@pytest.mark.gpu
+def test_render_tiled_kernels_match_reference_on_card(cuda):
+    """tests/test_rasterizer.py's oracle checks on the card: render_tiled
+    through K1 (forward) and K2 (backward) against the brute-force
+    render_reference, at that file's size and tolerances."""
+    from monogs_dev_tpu_torch.geometry.lie import se3_retract
+    from monogs_dev_tpu_torch.ops.rasterize_ref import render_reference
+
+    intr = Intrinsics(60.0, 60.0, 32.0, 32.0, 64, 64)
+    cfg = RasterConfig(tile=16, max_per_tile=64, k_dup=16, tile_group=8)
+    params = _blob_scene(40, cuda)
+    active = torch.ones(40, dtype=torch.bool, device=cuda)
+    B.reset_launch_counts()
+    outs, grads = {}, {}
+    tiled = functools.partial(render_tiled, need_touched=False)  # K1, not K3
+    for name, render in (("tiled", tiled), ("ref", render_reference)):
+        leaves = params.map(lambda x: x.detach().requires_grad_(True))
+        tau = torch.zeros(6, device=cuda, requires_grad=True)
+        out = render(leaves, active, se3_retract(tau, torch.eye(4, device=cuda)), intr, 0,
+                     config=cfg)
+        (out.color - 0.3).abs().mean().backward()
+        outs[name] = out
+        grads[name] = [tau.grad] + [torch.zeros_like(x) if x.grad is None else x.grad
+                                    for x in leaves.values()]
+    assert B.LAUNCHES["K1"] >= 1 and B.LAUNCHES["K2"] >= 1
+    t, r = outs["tiled"], outs["ref"]
+    for name, tol in (("color", 2e-5), ("alpha", 2e-5), ("depth", 2e-4)):
+        assert float((getattr(t, name) - getattr(r, name)).abs().max()) <= tol, name
+    gt, gr = grads["tiled"], grads["ref"]
+    assert float(gr[0].norm()) > 1e-6
+    torch.testing.assert_close(gt[0], gr[0], rtol=5e-3, atol=1e-7)
+    for a, b in zip(gt[1:], gr[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-2, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_dp_step_two_shards_match_one_on_card(cuda):
+    """dp_mapping_step on the mesh [cuda:0, cuda:0] against [cuda:0]:
+    tests/test_parallel.py's bounds (loss rtol 1e-5; map first moment rtol
+    1e-4 / atol 1e-7; poses and exposures atol 1e-6; slots' first moment
+    atol 1e-7). On one card `replicate` copies nothing: the replicas are the
+    lead's own tensors."""
+    from monogs_dev_tpu_torch.core.mapping import TorchDraws
+    from monogs_dev_tpu_torch.core.params import MapOptConfig, StepConfig
+    from monogs_dev_tpu_torch.models.gaussians import create_map, insert_points
+    from monogs_dev_tpu_torch.parallel import (DPBatch, dp_mapping_step, gather,
+                                                 make_dp_opt_state, make_mesh, replicate,
+                                                 shard_batch)
+
+    intr = Intrinsics(60.0, 60.0, 32.0, 32.0, 64, 64)
+    cfg = RasterConfig(tile=16, max_per_tile=64, k_dup=8, tile_group=8)
+    scene = _blob_scene(256, cuda, seed=1, scale=0.05)
+    gmap, _ = insert_points(create_map(512, 0, cuda), scene,
+                            torch.ones(256, dtype=torch.bool, device=cuda), 0)
+    images, depths, poses = [], [], []
+    for i in range(8):
+        th = 0.03 * (i - 4)
+        T = torch.eye(4, device=cuda)
+        T[0, 0], T[0, 2], T[2, 0], T[2, 2], T[2, 3] = (np.cos(th), np.sin(th), -np.sin(th),
+                                                       np.cos(th), 0.1 * th)
+        out = render_tiled(gmap.params, gmap.aux.active, T, intr, 0, config=cfg,
+                           need_touched=False)
+        images.append(out.color)
+        depths.append(out.depth)
+        poses.append(T)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    params = gmap.params.replace(
+        f_dc=gmap.params.f_dc + 0.1 * torch.randn(gmap.params.f_dc.shape, generator=g,
+                                                  device=cuda),
+        xyz=gmap.params.xyz + 0.01 * torch.randn(gmap.params.xyz.shape, generator=g,
+                                                 device=cuda))
+    gmap = type(gmap)(params, gmap.aux, gmap.moments)
+    flags = torch.arange(8, device=cuda) > 0
+    batch = DPBatch(images=torch.stack(images), depths=torch.stack(depths),
+                    T_w2c=torch.stack(poses), exposure=torch.zeros((8, 2), device=cuda),
+                    valid=torch.ones(8, dtype=torch.bool, device=cuda), optimize_pose=flags,
+                    optimize_exposure=flags)
+    res = {}
+    for n in (2, 1):
+        mesh = make_mesh(device=[cuda] * n)
+        step = dp_mapping_step(mesh, StepConfig(monocular=False), MapOptConfig(), intr, cfg,
+                               update_every=150, update_offset=0)
+        out = step(gmap, shard_batch(mesh, batch), make_dp_opt_state(8, cuda), 0,
+                   TorchDraws(torch.Generator(device=cuda)), 0.005, 6.0)
+        res[n] = out
+        if n == 2:
+            for p, a in replicate(mesh, out[0].params, out[0].aux.active):
+                assert a is out[0].aux.active
+                assert all(x is y for x, y in zip(p.values(), out[0].params.values()))
+    (g2, b2, o2, l2, _), (g1, b1, o1, l1, _) = res[2], res[1]
+    assert torch.isfinite(l2) and abs(float(l2) - float(l1)) <= 1e-5 * abs(float(l1))
+    for a, b in zip(g2.moments.mu.values(), g1.moments.mu.values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(gather(b2.T_w2c, cuda), gather(b1.T_w2c, cuda), rtol=0, atol=1e-6)
+    torch.testing.assert_close(gather(b2.exposure, cuda), gather(b1.exposure, cuda), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(gather(o2.mu, cuda), gather(o1.mu, cuda), rtol=0, atol=1e-7)
+    assert all(bool(torch.isfinite(x).all()) for x in g2.params.values())

@@ -11,7 +11,10 @@ fixture, the EuRoC writer, loader and matcher on a 2-frame pair, and a
 checkpoint saved and loaded. A third, with matplotlib blocked too, runs
 the tiny RGB-D config with the backend on its own thread
 (`TPU.scheduler: thread`) and the viewer channel open, renders the newest
-packet through `OfflineViewer` and writes a turntable's PNG frames."""
+packet through `OfflineViewer` and writes a turntable's PNG frames. A
+fourth, with jax blocked, runs the tiny RGB-D config with
+`TPU.mesh_devices: 2` on a two-shard CPU mesh, every mapping round through
+the data-parallel `_map_dp`, and renders through `render_reference`."""
 
 import os
 import subprocess
@@ -193,3 +196,45 @@ def test_thread_mode_and_viewer_without_jax_pil_cv2_or_matplotlib():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "ok", proc.stdout  # after the run's log
+
+
+DATA_PARALLEL = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.core import backend
+from monogs_dev_tpu_torch.core.system import SLAM
+from monogs_dev_tpu_torch.ops.rasterize import render_tiled
+from monogs_dev_tpu_torch.ops.rasterize_ref import render_reference
+from monogs_dev_tpu_torch.utils.config import load_config
+cfg = load_config("configs/synthetic/tiny_rgbd.yaml")
+cfg["TPU"]["mesh_devices"] = 2
+slam = SLAM(cfg, "cpu", seed=0)
+e = slam.engine
+assert e.mesh.size == 2 and e._dp_slots % 2 == 0
+single = []
+e._map_single = lambda *a, **k: single.append(a)
+slam.run(max_frames=10)  # the init and the keyframe at frame 9
+slam.stop()
+tel = e.telemetry
+assert not single and tel["dp_init_iters"] == e.init_itr_num and tel["map_iters"] > tel["dp_init_iters"]
+assert e._dp_state.count == tel["map_iters"] and len(slam.frontend.kf_indices) >= 2
+assert all(np.isfinite(c.T_est).all() for c in slam.frontend.cameras.values())
+T = torch.as_tensor(slam.frontend.cameras[9].T_est, dtype=torch.float32)
+ref = render_reference(e.gmap.params, e.gmap.aux.active, T, slam.intr, 0, config=slam.raster_cfg)
+tiled = render_tiled(e.gmap.params, e.gmap.aux.active, T, slam.intr, 0, config=slam.raster_cfg)
+assert float((ref.color - tiled.color).abs().max()) < 1e-3 and float(ref.alpha.max()) > 0.5
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_data_parallel_mapping_and_reference_render_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", DATA_PARALLEL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "ok", proc.stdout
