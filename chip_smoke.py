@@ -5,7 +5,10 @@
 
 1. device: the card's name and power limit (fails without a CUDA device);
 2. build: compiles the blend kernels (monogs_dev_tpu_torch/csrc) with nvcc,
-   and the PNG unfilter (csrc/png_unfilter.c) with the host C compiler;
+   linked to the shared CUDA runtime (checked: one libcudart in the
+   process, the library's and torch's), and the PNG unfilter
+   (csrc/png_unfilter.c) and the JPEG entropy decoder
+   (csrc/jpeg_entropy.c) with the host C compiler;
 3. kernels: K1, K3 and K2 at the bench shapes (VGA, 16x16 tiles, L = 512),
    on props from the port's projection, binning and gather of the bench
    scene at frame 0, each held against its plain torch version on the card
@@ -59,8 +62,10 @@
    line); the dp phase (`dp_phase`, the `dp:` lines): the same checkpoint
    resumed with `TPU.mesh_devices: 2` (a mesh of the visible cards, one on
    a one-card machine), every mapping round through the data-parallel step,
-   on until the next keyframe's round has mapped, with K1-K3 counted under
-   path `dp`; then one step at full width (10 VGA slots) over the meshes
+   RESUME_FRAMES frames, then the TUM run's own state one frame before its
+   keyframe resumed into it and on until that keyframe's round has mapped,
+   with K1-K3 counted under path `dp`; then one step at full width (10 VGA
+   slots) over the meshes
    [cuda:0, cuda:0] and [cuda:0], held to each other at
    tests/test_parallel.py's bounds (on one card the replicas are the lead's
    own tensors; with two cards [cuda:0, cuda:1] too, its replicas equal to
@@ -71,13 +76,23 @@
    packet, the same frames in turns with a second inline resumed run, then
    the TUM run's own state one frame before its keyframe resumed into it
    and on until the backend thread has mapped that keyframe while the
-   frontend tracked, one profiled frame, and the hand-off's snapshot
-   checksums;
+   frontend tracked, and the hand-off's snapshot checksums (no frame
+   profiled: `profile_frames` runs with no other thread alive);
    then writes a EuRoC-layout stereo
    sequence (320x240, EUROC_FRAMES frames)
    and runs the EuRoC base config on it through the rectification and the
    matcher (the `euroc:` line). Both fetch a few frames again under torch's
-   sync debug mode set to raise (`assert_loader_never_waits`).
+   sync debug mode set to raise (`assert_loader_never_waits`);
+10. replica (`replica_phase`, the `replica:` lines): writes a Replica-layout
+   sequence of the bench scene (JPEG colour, 16-bit depth) on the card and
+   runs `configs/rgbd/replica/office0_sp.yaml` as committed (1200x680) on it
+   through the Replica loader and the port's JPEG decoder, to its first
+   keyframe after frame 0; the fetch under sync debug mode; every frame's
+   decode on the card against the CPU's, bit for bit; K1-K3 under path
+   `replica`.
+
+Before the last lines it fails if a thread that Python code started (the
+backend's, a viewer's) is still alive: none may run into the teardown.
 
 The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
@@ -98,6 +113,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -141,23 +157,25 @@ PARITY_GRAD_FRAME = 6
 GRAD_CHECK_REL, LOSS_CHECK_REL = 1e-3, 1e-5
 PARITY_PROFILE_FRAMES = 1
 RGBD_ATE_BAR = 0.03  # PERF.md section 2
-# ingest phase: the TUM-layout sequence (INGEST_FRAMES frames of the bench
-# scene along bench_vga's orbit at fr3_office's calibration; 64 until the
-# thread phase needed the keyframe after frame 50, which came at frame 76;
-# now the dp phase runs on to it, at 73, and the thread phase does not),
-# the run's wall budget to its first keyframe after frame 0, the frames run
-# after the resume; the EuRoC-layout stereo sequence
-# (tools/run_fixture_evals.py's rig)
+# ingest phase: the TUM-layout sequence (the bench scene along bench_vga's
+# orbit, poses TUM_ORBIT_POSES of orbit_pose(i, 192, ...), at fr3_office's
+# calibration: orbit poses 0..11 as frames 0..11, the tracked frames/s
+# window, then every TUM_STRIDE-th pose, so that the first keyframe after
+# frame 0 comes at orbit pose ~50 after half as many frames; until the
+# Replica phase took their time every pose up to 88 was a frame, the
+# keyframe came at frame 50, and the dp and thread phases ran on to the next
+# one), the run's wall budget to that keyframe, the frames run after the
+# resume; the EuRoC-layout stereo sequence (tools/run_fixture_evals.py's rig)
 TUM_CONFIG = os.path.join(REPO, "configs", "rgbd", "tum", "fr3_office.yaml")
 EUROC_CONFIG = os.path.join(REPO, "configs", "stereo", "euroc", "base_config.yaml")
-INGEST_FRAMES = 88
+TUM_STRIDE = 3
+TUM_ORBIT_POSES = list(range(12)) + list(range(12, 88, TUM_STRIDE))
+INGEST_FRAMES = len(TUM_ORBIT_POSES)
 INGEST_BUDGET_S = 200.0
 RESUME_FRAMES = 3  # 8 until the dp phase took their time
 # thread phase: the wall budget to a keyframe mapped on the backend thread
-# while the frontend tracked on, from the TUM run's frame before its
-# keyframe; frames profiled
+# while the frontend tracked on, from the TUM run's frame before its keyframe
 THREAD_BUDGET_S = 200.0
-THREAD_PROFILE_FRAMES = 1
 # dp phase: TPU.mesh_devices in the resumed run (a one-device mesh on one
 # card), its wall budget to the next keyframe's data-parallel mapping, the
 # timing rounds of one full-width step and of the single path's iterations
@@ -172,6 +190,19 @@ DP_LOSS_RTOL, DP_MU_RTOL, DP_MU_ATOL, DP_POSE_ATOL, DP_SLOT_MU_ATOL = 1e-5, 1e-4
 # 12 until the dp phase took their time; keyframes 0 and 7 either way
 EUROC_FRAMES, EUROC_SIZE = 8, (320, 240)
 EUROC_TPU = {"capacity": 32768, "max_per_tile": 512, "k_dup": 8}
+# replica phase: configs/rgbd/replica/office0_sp.yaml as committed on a
+# Replica-layout sequence of the bench scene written on the card
+# (REPLICA_FRAMES frames of orbit_pose(i, REPLICA_ORBIT_N, sweep 0.45), JPEG
+# at image_io.JPEG_QUALITY), run to its first keyframe after frame 0 within
+# REPLICA_BUDGET_S; the frames are the only cut. Round-trip PSNR bar of each
+# decoded frame against its render (dB; the sound decode reads 45.5-45.6 dB,
+# PERF.md section 2), and the crop of frame 0 that the plain entropy decoder
+# (Python, ~64 s a 1200x680 frame on a CPU) checks
+REPLICA_CONFIG = os.path.join(REPO, "configs", "rgbd", "replica", "office0_sp.yaml")
+REPLICA_FRAMES, REPLICA_ORBIT_N = 8, 48  # the keyframe comes at frame 5
+REPLICA_BUDGET_S = 240.0
+REPLICA_PSNR_BAR = 40.0
+PLAIN_CROP = (136, 240)
 STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
 # copies of the stop tests' values, synchronizations)
@@ -663,9 +694,16 @@ def profile_frames(label, slam, start: int, n: int, frame_ms: float):
     kernel time per frame and its idle share, of the profiled wall time (the
     profiler slows the host) and of `frame_ms`, the unprofiled frame time
     of the timed window, and the host's blocking reads of the device
-    (HOST_WAIT_CALLS) per frame. None where the trace holds no device time."""
+    (HOST_WAIT_CALLS) per frame. None where the trace holds no device time.
+    No other thread that Python started may be alive: with the backend
+    thread running its mapping backward beside the profiled frame's, the
+    process died of SIGSEGV in native code (1 of 3 runs in one call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    others = started_threads()
+    if others:
+        fail(f"{label} profile: threads {others} run beside the profiled frames")
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -979,13 +1017,25 @@ def _frame_ms(timers, name):
     return entry["mean_ms"] if entry else None
 
 
+def started_threads():
+    """Names of the live threads that Python code started, the main thread
+    apart. Threads that torch started in C++ and that ran Python (autograd's
+    device threads run the blend's backward) show as `_DummyThread`s."""
+    return [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not isinstance(t, threading._DummyThread)]
+
+
 def assert_loader_never_waits(label, frontend, frames):
     """The frontend's frame fetch (decode into pinned memory, the copy to
     the card, the loader's arithmetic, for stereo the rectification and the
     matcher) under torch's sync debug mode set to raise: the host must
-    never wait for the device there."""
+    never wait for the device there. The mode is the process's: no other
+    thread may run while it is on."""
     import torch
 
+    others = started_threads()
+    if others:
+        fail(f"{label}: threads {others} run while sync debug mode would be on")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1036,8 +1086,8 @@ def tum_ingest(dev, tmp):
     seq = os.path.join(tmp, "tum_vga")
     t0 = time.time()
     params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n8000.npz"), dev)
-    mf.write_tum(seq, params, active, intr,
-                 mf.orbit(INGEST_FRAMES, n=192, sweep=0.45, ease=True, profile="ease_in"),
+    orbit = mf.orbit(TUM_ORBIT_POSES[-1] + 1, n=192, sweep=0.45, ease=True, profile="ease_in")
+    mf.write_tum(seq, params, active, intr, [orbit[i] for i in TUM_ORBIT_POSES],
                  depth_scale=float(cal["depth_scale"]))
     torch.cuda.synchronize()
     write_s = time.time() - t0
@@ -1150,7 +1200,7 @@ def tum_ingest(dev, tmp):
     if n - 1 not in saved:
         fail(f"tum: the keyframe came at frame {n}, before any state was saved for the "
              f"thread phase")
-    dp = dp_phase(config, dev, path, next_frame, info["resumed_fps"])
+    dp = dp_phase(config, dev, path, next_frame, info["resumed_fps"], saved[n - 1])
     thread = thread_phase(config, dev, path, next_frame, tmp, info["resumed_fps"],
                           saved[n - 1])
     print("tum: " + json.dumps(info), flush=True)
@@ -1182,15 +1232,13 @@ class ViewerThread:
     `OfflineViewer.tick` (`render_view`, K1) into `out_dir`."""
 
     def __init__(self, channel, intr, out_dir):
-        import threading
-
         from monogs_dev_tpu_torch.viz import OfflineViewer, VizChannel
 
         self.source, self.local = channel, VizChannel()
         self.viewer = OfflineViewer(self.local, intr, out_dir)
         self.stop_event = threading.Event()
         self.renders, self.error = 0, None
-        self.thread = threading.Thread(target=self._run, name="viewer", daemon=True)
+        self.thread = threading.Thread(target=self._run, name="viewer")
 
     def _run(self):
         import torch
@@ -1257,12 +1305,16 @@ class HandoffChecks:
         return [i for i, (a, b) in enumerate(self.pairs) if not bool((a.cpu() == b.cpu()).all())]
 
 
-def dp_phase(config, dev, path, next_frame, inline_fps):
+def dp_phase(config, dev, path, next_frame, inline_fps, before_keyframe):
     """(a) The checkpoint resumed with `TPU.mesh_devices: DP_MESH_DEVICES`
     (the config otherwise as committed; on one card a mesh of one device):
-    every mapping round through `_map_dp`, tracked on until the next
-    keyframe's mapping round has run there, then one frame more (within
-    DP_BUDGET_S); K1, K2 and K3 counted from the resume on. (b) One
+    every mapping round through `_map_dp`, RESUME_FRAMES frames timed; then
+    `before_keyframe`, the TUM run's own state one frame before its
+    keyframe, resumed into the same `SLAM` and tracked on until that
+    keyframe's mapping round has run through `_map_dp`, then one frame more
+    (within DP_BUDGET_S; until the Replica phase took their time, the run
+    went on from the resumed frames to the next keyframe, 73); K1, K2 and K3
+    counted from the first resume on. (b) One
     `dp_mapping_step` at full width, the window's keyframes over its 10 VGA
     slots, over the meshes [cuda:0, cuda:0] and [cuda:0] from the same state,
     held to each other at tests/test_parallel.py's bounds (the replicas of
@@ -1321,7 +1373,8 @@ def dp_phase(config, dev, path, next_frame, inline_fps):
     info = {"mesh_devices": DP_MESH_DEVICES, "mesh": [str(d) for d in e.mesh.devices],
             "slots": e._dp_slots, "fps": RESUME_FRAMES / (time.time() - t0),
             "inline_resumed_fps": inline_fps}
-    n, t0 = end, time.time()
+    n = slam.resume(before_keyframe)
+    start, kf0, t0 = n, len(fe.kf_indices), time.time()
     while len(fe.kf_indices) <= kf0 and n < INGEST_FRAMES - 1 and time.time() - t0 < DP_BUDGET_S:
         n += 1
         slam.run(max_frames=n)  # ends with the keyframe's mapping pumped
@@ -1331,7 +1384,8 @@ def dp_phase(config, dev, path, next_frame, inline_fps):
     gmap = e.gmap
     act = gmap.aux.active
     info.update(
-        frames_run=[next_frame, n + 1], keyframes=list(fe.kf_indices), rounds=len(rounds),
+        frames_run=[[next_frame, end], [start, n + 1]], keyframes=list(fe.kf_indices),
+        rounds=len(rounds),
         keyframe_rounds=[r for r in rounds if r[3] is not None],
         map_iters=e.telemetry["map_iters"] - iters0, dp_steps=sum(r[1] for r in rounds[n0:]),
         slot_adam_count=e._dp_state.count, alive=int(act.sum()),
@@ -1358,7 +1412,7 @@ def dp_phase(config, dev, path, next_frame, inline_fps):
             fail(f"kernel {name} was not launched in the data-parallel run")
 
     # (b) one step at full width, over two meshes from the same state: the
-    # window's keyframes (three at this point of the sequence) in turn over
+    # window's keyframes (two at this point of the sequence) in turn over
     # every slot, so that each shard of [cuda:0, cuda:0] renders five
     b = e._dp_slots
     ids = [e.current_window[k % len(e.current_window)] for k in range(b)]
@@ -1502,10 +1556,11 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps, before_keyframe
     run's own state one frame before its keyframe, resumed into the same
     thread-mode `SLAM` and run on, frame by frame, until the backend thread
     has mapped that keyframe while the frontend tracked on (within
-    THREAD_BUDGET_S), and THREAD_PROFILE_FRAMES profiled frames. (Until the
-    dp phase took their time, this run tracked on in thread mode from the
-    resumed frames to the next keyframe, 76.) Returns (info, launches by
-    path)."""
+    THREAD_BUDGET_S). (Until the dp phase took their time, this run tracked
+    on in thread mode from the resumed frames to the next keyframe, 76.) No
+    frame of it is profiled: `torch.profiler` around a frame whose backward
+    ran while the backend thread ran its own killed the process
+    (`profile_frames`). Returns (info, launches by path)."""
     import copy
 
     import torch
@@ -1570,14 +1625,12 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps, before_keyframe
         B.reset_launch_counts()
         n, t0 = slam.resume(before_keyframe), time.time()
         info["before_keyframe_frame"] = n
-        last = INGEST_FRAMES - THREAD_PROFILE_FRAMES
+        last = INGEST_FRAMES - 1
         while (bt.handled["keyframe"] < 1 or checks.tracked_in_flight < 1) and n < last \
                 and time.time() - t0 < THREAD_BUDGET_S:
             n += 1
             slam.run(max_frames=n)
         info["frames_run"] = [[next_frame, end], [info["before_keyframe_frame"], n]]
-        info["profile"] = profile_frames("thread", slam, n, THREAD_PROFILE_FRAMES,
-                                         1e3 / info["thread_fps"])
         tally("thread")
         info["map_iters"] = slam.engine.telemetry["map_iters"] - iters0
     finally:
@@ -1610,7 +1663,6 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps, before_keyframe
     for name, k in info["launches"].items():
         if k <= 0:
             fail(f"kernel {name} was not launched in the thread-mode run")
-    prof = info["profile"] or {}
     print(f"thread: frames/s {info['thread_fps']:.4f} against inline "
           f"{info['inline_fps'][0]:.4f} (before) and {info['inline_fps'][1]:.4f} (after), "
           f"frames [{next_frame}, {end}); then frames [{info['before_keyframe_frame']}, {n}) "
@@ -1619,9 +1671,8 @@ def thread_phase(config, dev, path, next_frame, tmp, inline_fps, before_keyframe
           f"{info['tracked_in_flight']}; keyframes handled {info['keyframes_handled']}, "
           f"keyframes {info['keyframes']}, keyframe ATE {info['keyframe_ate_cm']:.4f} cm; viewer "
           f"renders {info['viewer_renders']}, K1 from the viewer thread {info['viewer_k1']}; "
-          f"integrity checks {info['integrity_checks']} equal; device idle share "
-          f"{prof.get('idle_share_profiled')} (profiled) {prof.get('idle_share_of_timed_frame')} "
-          f"(of the timed frame); phase {info['phase_s']:.1f} s", flush=True)
+          f"integrity checks {info['integrity_checks']} equal; phase {info['phase_s']:.1f} s",
+          flush=True)
     return info, launches
 
 
@@ -1712,6 +1763,160 @@ def euroc_ingest(dev, tmp):
     return info, launches
 
 
+def replica_phase(dev):
+    """`configs/rgbd/replica/office0_sp.yaml` as committed (1200x680, its
+    Training budgets, `Dataset.single_thread`) on a Replica-layout sequence
+    written on the card by `write_replica` (JPEG colour, 16-bit PNG depth),
+    through `SLAM` and the port's JPEG decoder (no PIL in the process): to
+    its first keyframe after frame 0 within REPLICA_BUDGET_S. Checks finite
+    poses, keyframe ATE, K1-K3 launched, the frame fetch under sync debug
+    mode, every written frame decoded on the card equal to its decode on the
+    CPU, frame 0's coefficients from the C entropy decoder equal to the plain
+    one's on a crop, and each frame's round-trip PSNR. Returns (info,
+    launches)."""
+    import tempfile
+
+    import torch
+
+    from monogs_dev_tpu_torch.core import frontend as frontend_mod
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.data import image_io, jpeg
+    from monogs_dev_tpu_torch.data.datasets import ReplicaDataset
+    from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+    from monogs_dev_tpu_torch.models.camera import Intrinsics
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.tools import make_fixtures as mf
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    if "PIL" in sys.modules:
+        fail("replica: PIL is imported in this process")
+    config = load_config(REPLICA_CONFIG)
+    cal = config["Dataset"]["Calibration"]
+    intr = Intrinsics(fx=float(cal["fx"]), fy=float(cal["fy"]), cx=float(cal["cx"]),
+                      cy=float(cal["cy"]), width=int(cal["width"]), height=int(cal["height"]))
+    with tempfile.TemporaryDirectory(prefix="replica_") as tmp:
+        seq = os.path.join(tmp, "office0_sp")
+        params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n8000.npz"), dev)
+        poses = mf.orbit(REPLICA_FRAMES, n=REPLICA_ORBIT_N, sweep=0.45)
+        t0 = time.time()
+        mf.write_replica(seq, params, active, intr, poses,
+                         depth_scale=float(cal["depth_scale"]))
+        torch.cuda.synchronize()
+        write_s = time.time() - t0
+        config["Dataset"]["dataset_path"] = seq
+        config["Results"]["save_results"] = False
+
+        slam = SLAM(config, dev, seed=0)
+        fe, ds = slam.frontend, slam.dataset
+        if not isinstance(ds, ReplicaDataset) or (ds.width, ds.height) != (1200, 680):
+            fail("replica: the config did not load a 1200x680 ReplicaDataset")
+        recorder = TrackRecorder(fe, -1)
+        frontend_mod.track_frame = recorder
+        try:
+            torch.cuda.synchronize()
+            B.reset_launch_counts()
+            t0 = time.time()
+            slam.run(max_frames=2)  # frame 0, its init mapping, frame 1
+            torch.cuda.synchronize()
+            t1 = time.time()
+            n = 2
+            while len(fe.kf_indices) < 2 and n < len(ds) and time.time() - t0 < REPLICA_BUDGET_S:
+                n += 1
+                slam.run(max_frames=n)  # ends with the keyframe's mapping pumped
+            torch.cuda.synchronize()
+            t2 = time.time()
+        finally:
+            frontend_mod.track_frame = recorder.track_frame
+        launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        frames = sorted(fe.cameras)
+        iters = [recorder.iters[i] for i in sorted(recorder.iters)]
+        info = {
+            "config": os.path.relpath(REPLICA_CONFIG, REPO),
+            "size": [ds.width, ds.height],
+            "frames_written": REPLICA_FRAMES,
+            "frames_run": n,
+            "write_s": write_s,
+            "jpeg_bytes_per_frame": os.path.getsize(ds.color_paths[0]),
+            "init_and_first_frame_s": t1 - t0,
+            "fps_after_init": (n - 2) / (t2 - t1) if n > 2 else None,
+            "adam_iters_mean": float(np.mean(iters)) if iters else None,
+            "keyframes": list(fe.kf_indices),
+            "alive": slam.n_alive(),
+            "keyframe_ate_cm": 100.0 * slam.keyframe_ate(),
+            "launches": launches,
+            "loader_ms_per_frame": _frame_ms(slam.timers, "fetch_frame"),
+            "tracking_ms_per_frame": _frame_ms(slam.timers, "tracking"),
+            "timers": slam.timers.summary(),
+        }
+        if len(fe.kf_indices) < 2:
+            fail(f"replica: no keyframe after frame 0 by frame {n} ({REPLICA_BUDGET_S} s)")
+        if not all(np.isfinite(fe.cameras[i].T_est).all() for i in frames):
+            fail("replica: non-finite pose")
+        assert_loader_never_waits("replica", fe, range(3))
+        slam.stop()
+        del slam, fe
+
+        # the decoder: the host's entropy stage and the card's device stage
+        # timed on frame 1; every frame decoded on the card against the same
+        # coefficients through the device stage on the CPU; frame 0's C
+        # entropy decoder against its plain version on a crop
+        with open(ds.color_paths[1], "rb") as f:
+            data = f.read()
+        reader = ds.reader
+        host_s = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            reader._host(jpeg.decode_coefficients, data, torch.int16)
+            host_s.append(time.perf_counter() - t0)
+        host_ms = 1e3 * statistics.median(host_s)
+        info_1, buf = reader._host(jpeg.decode_coefficients, data, torch.int16)
+        device_ms = cuda_ms(lambda: jpeg.reconstruct(info_1, buf), reps=7)
+        psnr, unequal = [], []
+        for i, path in enumerate(ds.color_paths):
+            card = reader.samples(path).cpu()
+            with open(path, "rb") as f:
+                cpu = jpeg.decode(f.read(), "cpu")
+            if not torch.equal(card, cpu):
+                unequal.append(i)
+            src, _ = mf.render_rgbd(params, active, poses[i], intr, depth=False)
+            ref = np.clip(src * 255.0, 0, 255).astype(np.uint8).astype(np.float64)
+            mse = float(((card.numpy().astype(np.float64) - ref) ** 2).mean())
+            psnr.append(10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+        h, w = PLAIN_CROP
+        crop = jpeg.encode_jpeg(reader.samples(ds.color_paths[0]).cpu().numpy()[:h, :w],
+                                image_io.JPEG_QUALITY)
+        coef_c = jpeg.decode_coefficients(crop)[1]
+        coef_plain = jpeg.decode_coefficients(crop, entropy=jpeg.decode_scan_plain)[1]
+        del params, active
+    info.update(decode_host_ms=host_ms, decode_device_ms=device_ms, psnr_db=psnr,
+                psnr_min_db=min(psnr), frames_unequal=unequal,
+                plain_entropy_equal_on_crop=bool(np.array_equal(coef_c, coef_plain)),
+                phase_s=time.time() - t_phase)
+    print("replica: " + json.dumps(info), flush=True)
+    if not info["keyframe_ate_cm"] < 100.0 * RGBD_ATE_BAR:
+        fail(f"replica: keyframe ATE {info['keyframe_ate_cm']} cm over {info['keyframes']}")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the Replica run")
+    if unequal:
+        fail(f"replica: frames {unequal} decode differently on the card and on the CPU")
+    if not info["plain_entropy_equal_on_crop"]:
+        fail("replica: the C entropy decoder differs from its plain version on frame 0's crop")
+    if not info["psnr_min_db"] > REPLICA_PSNR_BAR:
+        fail(f"replica: a decoded frame's PSNR {info['psnr_min_db']} dB is not above "
+             f"{REPLICA_PSNR_BAR} dB against its render")
+    print(f"replica: {info['config']} at {ds.width}x{ds.height}; frames/s after init "
+          f"{info['fps_after_init']} over frames [2, {n}); init and frame 1 "
+          f"{info['init_and_first_frame_s']:.1f} s; keyframes {info['keyframes']}, keyframe ATE "
+          f"{info['keyframe_ate_cm']:.4f} cm; launches {launches}; loader "
+          f"{info['loader_ms_per_frame']} ms a frame (JPEG + 16-bit PNG), JPEG decode: host "
+          f"entropy {host_ms:.3f} ms + device stage {device_ms:.3f} ms; write "
+          f"{write_s:.1f} s for {REPLICA_FRAMES} frames; PSNR min {info['psnr_min_db']:.2f} dB; "
+          f"phase {info['phase_s']:.1f} s", flush=True)
+    return info, launches
+
+
 def ingest_phase(dev):
     """Phase 9: `tum_ingest` and `euroc_ingest` in a temporary directory. Returns (tum info, euroc info, launches by
     path, the TUM map snapshot)."""
@@ -1749,10 +1954,15 @@ def main() -> int:
 
     path, secs = B.build(verbose=True)
     print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s", flush=True)
-    from monogs_dev_tpu_torch.data import image_io
+    from monogs_dev_tpu_torch.data import image_io, jpeg
 
-    path, secs = image_io.build()  # the host C compiler: PNG rows for the loaders
-    print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s", flush=True)
+    # the host C compiler: PNG rows and JPEG scans for the loaders
+    for path, secs in (image_io.build(), jpeg.build()):
+        print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s", flush=True)
+    runtimes = B.cuda_runtimes()
+    print(f"CUDA runtimes in the process: {runtimes}", flush=True)
+    if not runtimes["one_runtime"]:
+        fail("the kernel library does not run on torch's CUDA runtime (one libcudart)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(CONFIG)
@@ -1776,6 +1986,7 @@ def main() -> int:
     tum, euroc, thread, dp, ingest_launches, tum_snap = timed("ingest", ingest_phase, dev)
     phase_s["thread (in ingest)"] = thread["phase_s"]
     phase_s["dp (in ingest)"] = dp["phase_s"]
+    replica, replica_launches = timed("replica", replica_phase, dev)
     tum_cfg = load_config(TUM_CONFIG)
     cal = tum_cfg["Dataset"]["Calibration"]
     from monogs_dev_tpu_torch.core.params import StepConfig
@@ -1788,10 +1999,10 @@ def main() -> int:
     sets.update(timed("kernels tum map", map_kernel_phase, [tum_snap], tum_intr,
                       raster_config_from(tum_cfg),
                       StepConfig.from_config(tum_cfg).mapping_rebin_dilation))
-    profiled = {"mono": mono["profile"], "parity": parity["profile"], "thread": thread["profile"]}
+    profiled = {"mono": mono["profile"], "parity": parity["profile"]}
     paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
              "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"],
-             **ingest_launches}
+             **ingest_launches, "replica": replica_launches}
     ksets = {label: k for label, (k, _) in sets.items()}
     lsets = {label: lab for label, (_, lab) in sets.items()}
 
@@ -1848,6 +2059,11 @@ def main() -> int:
               flush=True)
     print("phases (s): " + json.dumps(phase_s), flush=True)
     print(f"wall time: {time.time() - t_start:.1f} s", flush=True)
+    # every thread the port or this script started has been joined: none may
+    # run on into the interpreter's teardown
+    alive = started_threads()
+    if alive:
+        fail(f"threads still alive at the end: {alive}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

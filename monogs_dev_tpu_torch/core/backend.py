@@ -28,11 +28,14 @@ not needed for: that lock serializes dispatch for a relay-attached TPU.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
 import queue
+import sys
 import threading
+import weakref
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -752,6 +755,27 @@ class _BackendProtocol:
         self.handled[tag] += 1
 
 
+# backend threads that were started; any still running when the interpreter
+# exits is stopped and joined first (`_stop_at_exit`): a thread left inside
+# CUDA work while the process tears down kills it (SIGABRT in every such
+# process on the card, PERF.md). One that outlives the join is reported on
+# stderr before the teardown that may kill it.
+_STARTED: "weakref.WeakSet" = weakref.WeakSet()
+EXIT_JOIN_S = 600.0
+
+
+@atexit.register
+def _stop_at_exit() -> None:
+    for bt in list(_STARTED):
+        if bt.is_alive():
+            bt.backend_queue.put(["stop"])
+            threading.Thread.join(bt, EXIT_JOIN_S)
+            if bt.is_alive():
+                print(f"monogs_dev_tpu_torch: backend thread {bt.name} still runs "
+                      f"{EXIT_JOIN_S:g} s after its stop at interpreter exit; the "
+                      "process tears down with it running", file=sys.stderr, flush=True)
+
+
 class BackendThread(threading.Thread, _BackendProtocol):
     """The reference's backend: a host thread that handles the protocol's
     messages as they come and maps in the background between them
@@ -770,7 +794,8 @@ class BackendThread(threading.Thread, _BackendProtocol):
     thread and is kept: `check()` raises it (the frontend calls it at every
     drain of its queue, `SLAM.stop` at the end). `held()` holds the thread
     between rounds for a reader of the map on another thread (a checkpoint,
-    the eval tail)."""
+    the eval tail). A thread still running at interpreter exit is stopped
+    and joined before the process tears down (`_stop_at_exit`)."""
 
     cross_stream = True
 
@@ -785,6 +810,7 @@ class BackendThread(threading.Thread, _BackendProtocol):
 
     def start(self) -> None:
         self._start_ready = stream_event(self.engine.device)
+        _STARTED.add(self)
         super().start()
 
     def run(self) -> None:

@@ -10,10 +10,12 @@ runs to thousands of frames.
 The parsers are the JAX package's, line for line (TUM timestamp association
 within 0.08 s and 32 Hz subsampling, Replica's C2W `traj.txt` inverted,
 EuRoC's ground truth through the body-to-cam0 extrinsic). Images are read
-without PIL or cv2 (`image_io`, PNG; JPEG only through PIL): the PNG rows
-are unfiltered into pinned host memory on a CUDA device and copied to the
-device without blocking the host, where the arithmetic of the JAX loader
-runs: `/ 255` then clip, depth as float32 `/ depth_scale`, stereo depth as
+without PIL or cv2 (`image_io` for PNG, `jpeg` for JPEG, the format from
+the file's first bytes): the PNG rows are unfiltered, and the JPEG scans
+entropy-decoded into quantised coefficients, in pinned host memory on a
+CUDA device, copied to the device without blocking the host, where the
+JPEG's inverse DCT, upsampling and colour conversion run, and then the
+arithmetic of the JAX loader: `/ 255` then clip, depth as float32 `/ depth_scale`, stereo depth as
 `BASELINE_FX / disparity` with the loader's `== 0 -> 1e10` and `< 0 -> 0`
 steps. Undistortion and rectification resample with `camera_maps`, and the
 stereo disparity comes from `stereo.sgbm_disparity` on the device.
@@ -29,7 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
-from . import camera_maps, image_io
+from . import camera_maps, image_io, jpeg
 from .stereo import sgbm_disparity
 
 
@@ -59,32 +61,36 @@ def _quat_xyzw_to_matrix(quat: np.ndarray) -> np.ndarray:
 
 
 class FrameReader:
-    """Reads image files onto a device: PNG rows unfiltered into pinned host
+    """Reads PNG and JPEG files onto a device: PNG rows unfiltered, JPEG
+    scans entropy-decoded (`jpeg.decode_coefficients`), into pinned host
     memory (CUDA) or plain host memory (CPU), then one copy to the device,
-    non-blocking from pinned memory; JPEG through PIL."""
+    non-blocking from pinned memory; a JPEG's device stage
+    (`jpeg.reconstruct`) runs there."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.pin = self.device.type == "cuda"
 
-    def _rows(self, path: str):
+    def _host(self, decode, data: bytes, dtype):
+        """decode(data, alloc=...) into a host tensor of `dtype` (pinned on a
+        CUDA device); (decode's info, that tensor on the device)."""
         held = {}
 
         def alloc(shape):
-            held["t"] = torch.empty(shape, dtype=torch.uint8, pin_memory=self.pin)
+            held["t"] = torch.empty(shape, dtype=dtype, pin_memory=self.pin)
             return held["t"].numpy()
 
-        with open(path, "rb") as f:
-            info, _ = image_io.decode_rows(f.read(), alloc=alloc)
+        info, _ = decode(data, alloc=alloc)
         return info, held["t"].to(self.device, non_blocking=self.pin)
 
     def samples(self, path: str) -> torch.Tensor:
         """The file's samples on the device: uint8 (H, W[, C]) or, 16-bit,
         int32 (H, W)."""
-        if not path.lower().endswith(".png"):
-            arr = image_io.read_jpeg(path)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-        info, rows = self._rows(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        if image_io.image_format(data) == "jpeg":
+            return jpeg.reconstruct(*self._host(jpeg.decode_coefficients, data, torch.int16))
+        info, rows = self._host(image_io.decode_rows, data, torch.uint8)
         if info.sample_bytes == 2:  # big-endian samples
             rows = rows.view(info.height, -1, 2).to(torch.int32)
             return (rows[..., 0] << 8) | rows[..., 1]

@@ -1,4 +1,4 @@
-"""PNG decode and encode without PIL or cv2, for the loaders and the fixture
+"""PNG and JPEG decode and encode without PIL or cv2, for the loaders and the fixture
 writers (the JAX package reads with `PIL.Image.open` and `cv2.imread`,
 `monogs_dev_tpu/data/datasets.py:210,218,307-308`, and writes with
 `Image.fromarray(...).save`).
@@ -13,8 +13,9 @@ and EuRoC; the samples come back as `np.array(PIL.Image.open(path))` gives
 them. Encoding writes 8-bit gray, RGB or RGBA and 16-bit gray, with the
 Paeth filter on every row: PIL's adaptive choice on nearly every row of a
 rendered or camera frame, so the sequences the port writes cost the reader
-what real ones do. JPEG (Replica's colour frames) is decoded by PIL,
-which the port needs for nothing else; without PIL it raises.
+what real ones do. JPEG (Replica's colour frames) is decoded and encoded by
+`data/jpeg.py`; `image_format` tells the two apart by the file's first
+bytes, as PIL does, not by its name.
 """
 
 from __future__ import annotations
@@ -68,28 +69,38 @@ def _compiler() -> str:
     raise RuntimeError("no host C compiler (cc, gcc or clang) to build csrc/png_unfilter.c")
 
 
-def library_path() -> str:
+def library_path(source: str = None) -> str:
+    """`build/lib<source name>_<key>.so`, the key a hash of the flags and
+    the source (by default `csrc/png_unfilter.c`)."""
+    source = source or SOURCE
     h = hashlib.sha1(" ".join(CC_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(_BUILD_DIR, f"libpng_unfilter_{h.hexdigest()[:12]}.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
-def build() -> Tuple[str, float]:
-    """Compile `csrc/png_unfilter.c`; (library path, seconds; 0.0 if built)."""
-    out = library_path()
+def compile_c(source: str) -> Tuple[str, float]:
+    """Compile a host C source of the port (`csrc/*.c`) into a shared
+    library; (library path, seconds; 0.0 if built). A failure raises."""
+    out = library_path(source)
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(_BUILD_DIR, exist_ok=True)
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
         lib = os.path.join(tmp, "lib.so")
-        proc = subprocess.run([_compiler(), *CC_FLAGS, "-o", lib, SOURCE],
+        proc = subprocess.run([_compiler(), *CC_FLAGS, "-o", lib, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"the C compiler failed on {SOURCE}:\n{proc.stderr}")
+            raise RuntimeError(f"the C compiler failed on {source}:\n{proc.stderr}")
         os.replace(lib, out)
     return out, time.time() - t0
+
+
+def build() -> Tuple[str, float]:
+    """Compile `csrc/png_unfilter.c`; (library path, seconds; 0.0 if built)."""
+    return compile_c(SOURCE)
 
 
 def _load():
@@ -222,12 +233,22 @@ def read_png(path: str, unfilter: Callable = None) -> np.ndarray:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError(f"{path}: decoding JPEG needs PIL (Pillow), which is not "
-                           "installed; the port decodes PNG only by itself") from e
-    return np.array(Image.open(path))
+    """A baseline JPEG file's samples, uint8 (H, W) or (H, W, 3), decoded on
+    the CPU by `data/jpeg.py`."""
+    from . import jpeg
+
+    with open(path, "rb") as f:
+        return jpeg.decode(f.read(), "cpu").numpy()
+
+
+def image_format(data: bytes) -> str:
+    """"png" or "jpeg" from the first bytes; anything else raises."""
+    if data[:8] == SIGNATURE:
+        return "png"
+    if data[:2] == b"\xff\xd8":
+        return "jpeg"
+    raise ValueError("not a PNG or JPEG file")
+
 
 
 # ------------------------------------------------------------------ encode
@@ -272,3 +293,16 @@ def encode_png(arr: np.ndarray) -> bytes:
 def write_png(path: str, arr: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(arr))
+
+
+# the quality of the JPEG files the port writes (Replica's colour frames)
+JPEG_QUALITY = 95
+
+
+def write_jpeg(path: str, arr: np.ndarray) -> None:
+    """uint8 (H, W) or (H, W, 3) -> a baseline JPEG file at JPEG_QUALITY
+    (4:2:0 for colour; `data/jpeg.py::encode_jpeg`)."""
+    from . import jpeg
+
+    with open(path, "wb") as f:
+        f.write(jpeg.encode_jpeg(arr, JPEG_QUALITY))

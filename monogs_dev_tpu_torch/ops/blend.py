@@ -39,6 +39,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# the library links the CUDA runtime as a shared library, so that it resolves
+# to the `libcudart` torch has already loaded: nvcc's default, the static
+# runtime, gave the process a second, private runtime beside torch's, which
+# launched on torch's streams and tore itself down separately at exit
+LINK_FLAGS = ["-shared", "-cudart", "shared"]
 # each source with its own flags: version 2 (blend.cu, blend_lab.cu) rounds
 # power, alpha and the transmittance by hand and lets the rest contract to
 # FMA; the first versions are held to their plain versions as compiled with
@@ -104,7 +109,7 @@ def compile_commands(nvcc: str, obj_dir: str, verbose: bool = False) -> List[Lis
 
 def library_path() -> str:
     """`build/libblend_<key>.so`, the key a hash of the flags and sources."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in SOURCES:
         h.update(" ".join(SOURCE_FLAGS[os.path.basename(path)]).encode())
         with open(path, "rb") as f:
@@ -135,7 +140,7 @@ def build(verbose: bool = False) -> Tuple[str, float]:
                 print(err, end="")
         objs = [cmd[-2] for cmd in cmds]
         lib = os.path.join(tmp_dir, "lib.so")
-        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, *LINK_FLAGS, "-o", lib, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to link {objs}:\n{proc.stderr}")
@@ -184,6 +189,23 @@ def _load():
                 getattr(lib, bwd).restype = _c_int
             _lib = lib
     return _lib
+
+
+def cuda_runtimes() -> Dict[str, object]:
+    """The CUDA runtimes of this process once the kernel library is loaded:
+    the `libcudart` files mapped (`/proc/self/maps`), and `one_runtime`,
+    whether exactly one is mapped and the library's `cudaGetLastError` is
+    that file's, i.e. the library runs on torch's runtime (Linux only)."""
+    lib = _load()
+    with open("/proc/self/maps") as f:
+        paths = sorted({line.split()[-1] for line in f if "libcudart" in line.split()[-1]})
+    try:
+        ours = ctypes.cast(lib.cudaGetLastError, _c_void_p).value
+    except AttributeError:  # a runtime linked in and hidden
+        ours = None
+    one = len(paths) == 1 and ours == ctypes.cast(ctypes.CDLL(paths[0]).cudaGetLastError,
+                                                  _c_void_p).value
+    return {"libcudart": paths, "one_runtime": one}
 
 
 def _tile_wh(tile) -> Tuple[int, int]:

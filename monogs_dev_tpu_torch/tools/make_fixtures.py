@@ -1,24 +1,27 @@
 #!/usr/bin/env python
-"""Write sequences in the TUM RGB-D, EuRoC-MAV stereo and Realsense-replay
-layouts from a synthetic scene (port of the JAX package's
+"""Write sequences in the TUM RGB-D, Replica, EuRoC-MAV stereo and
+Realsense-replay layouts from a synthetic scene (port of the JAX package's
 `tools/make_tum_fixture.py`, `tools/make_euroc_fixture.py` and
-`tools/make_replay_fixture.py`).
+`tools/make_replay_fixture.py`; the Replica writer has no JAX counterpart).
 
 Frames are rendered with the port's `render_tiled` (colour) and
 `render_median_depth` (depth, 0 where alpha < 0.5) from a scene npz
 (`data/scenes/`, written by `tools/export_synthetic_scene.py`) on the given
 device (default `cuda`; `--device cpu` renders with the plain blend), and
-written as PNG with `data/image_io.py`; no PIL, cv2 or JAX.
+written as PNG (and Replica's colour as baseline JPEG) with
+`data/image_io.py`; no PIL, cv2 or JAX.
 
   TUM:    rgb/<ts>.png, depth/<ts>.png (16-bit, depth_scale units a metre),
           rgb.txt, depth.txt, groundtruth.txt (ts tx ty tz qx qy qz qw, C2W)
+  Replica: results/frame%06d.jpg (4:2:0), results/depth%06d.png (16-bit,
+          depth_scale units a metre), traj.txt (a flat 4x4 C2W a line)
   EuRoC:  mav0/cam{0,1}/data/<ns>.png, an already rectified pair (right eye
           shifted +baseline along x, baseline = BASELINE_FX / fx, so the
           loader's disparity-to-depth constant is exact), and
           mav0/state_groundtruth_estimate0/data.csv (body poses, wxyz)
   replay: color/<idx>.png, and gt_poses.npy for diagnostics only
 
-    python -m monogs_dev_tpu_torch.tools.make_fixtures tum <out_dir> \\
+    python -m monogs_dev_tpu_torch.tools.make_fixtures tum|replica|euroc|replay <out_dir> \\
         [--frames 40] [--size 160x120] [--scene <npz>] [--device cuda|cpu]
 """
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..data.datasets import _EUROC_T_I_C0, StereoDataset
-from ..data.image_io import write_png
+from ..data.image_io import write_jpeg, write_png
 from ..data.synthetic import SCENE_DIR, load_scene, orbit_pose, scene_file_name
 from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
@@ -115,6 +118,24 @@ def write_tum(out_dir: str, params, active, intr: Intrinsics, poses: List[np.nda
             f.write("\n".join(lines) + "\n")
 
 
+def write_replica(out_dir: str, params, active, intr: Intrinsics, poses: List[np.ndarray],
+                  depth_scale: float = 6553.5) -> None:
+    """A Replica sequence (the layout of `configs/rgbd/replica/*.yaml`'s
+    datasets) of len(poses) frames."""
+    res = os.path.join(out_dir, "results")
+    os.makedirs(res, exist_ok=True)
+    rows = []
+    for i, T_w2c in enumerate(poses):
+        color, depth = render_rgbd(params, active, T_w2c, intr)
+        write_jpeg(os.path.join(res, f"frame{i:06d}.jpg"),
+                   np.clip(color * 255.0, 0, 255).astype(np.uint8))
+        d16 = np.clip(depth * depth_scale, 0, 65535).astype(np.uint16)
+        write_png(os.path.join(res, f"depth{i:06d}.png"), d16)
+        rows.append(" ".join(f"{v:.17g}" for v in np.linalg.inv(T_w2c).reshape(-1)))
+    with open(os.path.join(out_dir, "traj.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
 def write_euroc(out_dir: str, params, active, n_frames: int = 12, w: int = 160,
                 h: int = 120) -> Dict:
     """A rectified EuRoC stereo sequence along orbit_pose(i, max(n_frames,
@@ -177,12 +198,12 @@ def write_replay(out_dir: str, params, active, n_frames: int = 120, w: int = 640
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("layout", choices=("tum", "euroc", "replay"))
+    ap.add_argument("layout", choices=("tum", "replica", "euroc", "replay"))
     ap.add_argument("out_dir")
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--size", default="160x120", help="WxH")
     ap.add_argument("--scene", default=DEFAULT_SCENE)
-    ap.add_argument("--sweep", type=float, default=0.45, help="TUM orbit sweep")
+    ap.add_argument("--sweep", type=float, default=0.45, help="TUM and Replica orbit sweep")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -191,10 +212,11 @@ def main(argv=None) -> int:
                          "(--device cpu renders with the plain blend)")
     w, h = (int(v) for v in args.size.split("x"))
     params, active = load_params(args.scene, device)
-    if args.layout == "tum":
+    if args.layout in ("tum", "replica"):
         fx = 0.9 * w
         intr = Intrinsics(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0, width=w, height=h)
-        write_tum(args.out_dir, params, active, intr, orbit(args.frames, sweep=args.sweep))
+        write = write_tum if args.layout == "tum" else write_replica
+        write(args.out_dir, params, active, intr, orbit(args.frames, sweep=args.sweep))
     elif args.layout == "euroc":
         write_euroc(args.out_dir, params, active, args.frames, w, h)
     else:

@@ -225,6 +225,39 @@ def test_each_source_builds_with_its_own_flags():
     assert B.library_path() == key
 
 
+def test_library_links_the_shared_cuda_runtime(tmp_path, monkeypatch):
+    """The link asks for the shared CUDA runtime (nvcc's default is the
+    static one, a second runtime beside torch's), and the library's name
+    hashes the link flags. nvcc is stood in for: it records its commands."""
+    calls = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            calls.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+
+        def communicate(self):
+            return "", ""
+
+    def run(cmd, **kwargs):
+        Proc(cmd)
+        return Proc.__new__(Proc)
+
+    monkeypatch.setattr(B, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(B, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(B.subprocess, "Popen", Proc)
+    monkeypatch.setattr(B.subprocess, "run", run)
+    path, _ = B.build()
+    link = calls[-1]
+    assert "-shared" in link and link[link.index("-cudart") + 1] == "shared"
+    assert os.path.exists(path)
+    key = B.library_path()
+    monkeypatch.setattr(B, "LINK_FLAGS", ["-shared"])
+    assert B.library_path() != key
+
+
 @pytest.mark.parametrize("tile", [(16, 15), (8, 3), (16, 128)])
 def test_cuda_wrappers_refuse_tiles_the_kernels_do_not_take(tile):
     """One thread per pixel, whole warps, one block: a multiple of 32 pixels

@@ -3,8 +3,9 @@ package's (`monogs_dev_tpu/data/datasets.py`), which read with PIL and cv2.
 
 - Loaders: the same length, paths and poses (atol 1e-12), and images and
   depths equal bit for bit on the CPU, on the committed `tum_surface`, on
-  TUM, Replica (JPEG through PIL) and replay directories built as
-  `tests/test_datasets.py` builds them, on a distorted TUM camera, and on a
+  TUM, Replica (JPEG: PIL's decode against the port's) and replay (PNG and
+  JPEG frames) directories built as `tests/test_datasets.py` builds them,
+  on a Replica directory from the port's writer, on a distorted TUM camera, and on a
   EuRoC directory from the port's writer (160x120, 6 frames). EuRoC depth
   comes from the matcher, which is not cv2's to the bit: it is held equal
   where the two matchers' disparities are equal, and those must be at least
@@ -174,6 +175,35 @@ def test_replica_directory_matches_jax(tmp_path):
     (root / "traj.txt").write_text("\n".join(lines))
     j, t = _assert_same(_cfg("replica", str(root), _calib(depth_scale=6553.5)))
     np.testing.assert_allclose(t[3][2][:3, 3], [0.0, -0.3, 0.0], atol=1e-6)
+
+
+def test_replica_writer_directory_matches_jax(tmp_path):
+    """`write_replica`'s layout (the port's JPEG encoder, 16-bit depth at
+    Replica's depth_scale, flat C2W rows) through both packages' Replica
+    loaders: images (PIL's decode against the port's) and depths equal."""
+    params, active = mf.load_params(SCENE, "cpu")
+    intr = Intrinsics(fx=60.0, fy=60.0, cx=39.5, cy=29.5, width=80, height=60)
+    poses = mf.orbit(3, n=48, sweep=0.45)
+    mf.write_replica(str(tmp_path / "replica"), params, active, intr, poses, depth_scale=6553.5)
+    assert sorted(os.listdir(tmp_path / "replica" / "results")) == [
+        "depth000000.png", "depth000001.png", "depth000002.png", "frame000000.jpg",
+        "frame000001.jpg", "frame000002.jpg"]
+    cal = _calib(80, 60, depth_scale=6553.5)
+    j, t = _assert_same(_cfg("replica", str(tmp_path / "replica"), cal))
+    for i in range(3):
+        assert np.allclose(t.poses[i], poses[i], atol=1e-9)
+        assert float((t[i][1] > 0).float().mean()) > 0.5
+
+
+def test_replay_directory_of_jpeg_frames_matches_jax(tmp_path):
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        _write_png(str(tmp_path / "color" / f"{i:05d}.jpg"),
+                   rng.integers(0, 255, (24, 32, 3), dtype=np.uint8))
+    calib = _calib()
+    del calib["depth_scale"]
+    j, t = _assert_same(_cfg("realsense_replay", str(tmp_path), calib))
+    assert t.color_paths[0].endswith(".jpg") and t[0][1] is None
 
 
 def test_replay_directory_matches_jax(tmp_path):

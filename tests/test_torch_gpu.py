@@ -662,3 +662,38 @@ def test_dp_step_two_shards_match_one_on_card(cuda):
                                atol=1e-6)
     torch.testing.assert_close(gather(o2.mu, cuda), gather(o1.mu, cuda), rtol=0, atol=1e-7)
     assert all(bool(torch.isfinite(x).all()) for x in g2.params.values())
+
+
+@pytest.mark.gpu
+def test_jpeg_decode_on_card_matches_cpu(cuda, tmp_path):
+    """The JPEG path on the card (`FrameReader`: the C entropy decoder into
+    pinned memory, one non-blocking copy, the device stage there) equals the
+    same file decoded on the CPU bit for bit, at Replica's 1200x680 (4:2:0)
+    and in gray at an odd size; the C entropy decoder, built with the card
+    machine's host compiler, equals its plain version on a small file."""
+    from monogs_dev_tpu_torch.data import jpeg
+    from monogs_dev_tpu_torch.data.datasets import FrameReader
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:680, 0:1200]
+    smooth = np.stack([(x // 3) % 256, (y // 2) % 256, ((x + y) // 5) % 256], -1)
+    frames = {"rgb_1200x680.jpg": np.clip(smooth + rng.integers(-9, 9, smooth.shape), 0, 255),
+              "gray_37x53.jpg": rng.integers(0, 256, (37, 53))}
+    reader = FrameReader(cuda)
+    for name, arr in frames.items():
+        path = tmp_path / name
+        path.write_bytes(jpeg.encode_jpeg(arr.astype(np.uint8), 90))
+        card = reader.samples(str(path))
+        assert card.is_cuda
+        assert torch.equal(card.cpu(), jpeg.decode(path.read_bytes(), "cpu"))
+    small = jpeg.encode_jpeg(frames["rgb_1200x680.jpg"][:40, :64].astype(np.uint8), 75)
+    assert np.array_equal(jpeg.decode_coefficients(small)[1],
+                          jpeg.decode_coefficients(small, entropy=jpeg.decode_scan_plain)[1])
+
+
+@pytest.mark.gpu
+def test_kernel_library_runs_on_torchs_cuda_runtime(cuda):
+    """The library links the shared CUDA runtime: one libcudart is mapped
+    in the process and the library's runtime calls resolve to it."""
+    runtimes = B.cuda_runtimes()
+    assert runtimes["one_runtime"] and len(runtimes["libcudart"]) == 1, runtimes

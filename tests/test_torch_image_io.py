@@ -9,8 +9,9 @@ five filter types and with the types mixed row by row, and every PNG of the
 committed `tests/fixtures/tum_surface`. The writer filters every row with
 Paeth. Writing then reading gives the array back exactly, and PIL reads what
 the port writes. Unsupported modes raise,
-naming the mode; JPEG needs PIL and raises without it; a failed build of the
-C function raises (no fallback to the plain version)."""
+naming the mode; JPEG decodes through the port's decoder with PIL masked
+(tests/test_torch_jpeg.py holds it to PIL); a failed build of the C
+function raises (no fallback to the plain version)."""
 
 import glob
 import os
@@ -152,14 +153,24 @@ def test_interlaced_raises():
         image_io.decode_png(bytes(data))
 
 
-def test_jpeg_through_pil_and_raises_without_it(tmp_path, monkeypatch):
-    arr = _random("rgb8", 2, 16, 24)
+@pytest.mark.parametrize("mode", ["gray", "444", "422", "420"])
+def test_jpeg_through_pil_and_raises_without_it(mode, tmp_path, monkeypatch):
+    """(Name kept from when JPEG went through PIL.) A PIL-written JPEG of each
+    mode decodes, with PIL masked in sys.modules, to what PIL decodes, and
+    is told from a PNG by its first bytes."""
+    arr = _random("gray8" if mode == "gray" else "rgb8", 2, 16, 24)
     path = str(tmp_path / "x.jpg")
-    Image.fromarray(arr).save(path)
-    assert np.array_equal(image_io.read_jpeg(path), np.array(Image.open(path)))
+    kw = {} if mode == "gray" else {"subsampling": {"444": 0, "422": 1, "420": 2}[mode]}
+    Image.fromarray(arr).save(path, "JPEG", **kw)
+    ref = np.array(Image.open(path))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="PIL"):
-        image_io.read_jpeg(path)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    assert np.array_equal(image_io.read_jpeg(path), ref)
+    with open(path, "rb") as f:
+        assert image_io.image_format(f.read()) == "jpeg"
+    assert image_io.image_format(image_io.encode_png(arr)) == "png"
+    with pytest.raises(ImportError):
+        import PIL  # noqa: F401
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -14,7 +14,11 @@ the tiny RGB-D config with the backend on its own thread
 packet through `OfflineViewer` and writes a turntable's PNG frames. A
 fourth, with jax blocked, runs the tiny RGB-D config with
 `TPU.mesh_devices: 2` on a two-shard CPU mesh, every mapping round through
-the data-parallel `_map_dp`, and renders through `render_reference`."""
+the data-parallel `_map_dp`, and renders through `render_reference`. A
+fifth, with jax, PIL and cv2 blocked, writes a Replica sequence (JPEG
+colour) with the port's writer and runs `configs/rgbd/replica/office0_sp.yaml`
+on it, cut to a small frame and a few iterations, through the port's JPEG
+decoder."""
 
 import os
 import subprocess
@@ -235,6 +239,51 @@ print("ok")
 def test_data_parallel_mapping_and_reference_render_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", DATA_PARALLEL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "ok", proc.stdout
+
+
+REPLICA = r"""
+import os, sys, tempfile
+for name in ("jax", "PIL", "cv2"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.core.system import SLAM
+from monogs_dev_tpu_torch.data.datasets import ReplicaDataset
+from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
+from monogs_dev_tpu_torch.models.camera import Intrinsics
+from monogs_dev_tpu_torch.tools import make_fixtures as mf
+from monogs_dev_tpu_torch.utils.config import load_config
+cfg = load_config("configs/rgbd/replica/office0_sp.yaml")
+cal = cfg["Dataset"]["Calibration"]
+cal.update(fx=60.0, fy=60.0, cx=59.5, cy=33.5, width=120, height=68)
+intr = Intrinsics(fx=60.0, fy=60.0, cx=59.5, cy=33.5, width=120, height=68)
+params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n6000.npz"), "cpu")
+with tempfile.TemporaryDirectory() as d:
+    mf.write_replica(d, params, active, intr, mf.orbit(3, n=48, sweep=0.45),
+                     depth_scale=cal["depth_scale"])
+    cfg["Dataset"]["dataset_path"] = d
+    cfg["Results"]["save_results"] = False
+    cfg["Training"].update(init_itr_num=5, tracking_itr_num=3, mapping_itr_num=3)
+    slam = SLAM(cfg, "cpu", seed=0)
+    assert isinstance(slam.dataset, ReplicaDataset) and slam.dataset.color_paths[0].endswith(".jpg")
+    slam.run(max_frames=3)
+    slam.stop()
+    fe = slam.frontend
+    assert sorted(fe.cameras) == [0, 1, 2]
+    assert all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras)
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_replica_path_without_pil_cv2_or_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", REPLICA], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "ok", proc.stdout

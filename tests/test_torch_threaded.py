@@ -211,6 +211,56 @@ def test_tiny_run_in_thread_mode():
     assert len(poses) == 8 and all(np.isfinite(T).all() for T in poses)
 
 
+def test_a_thread_left_running_is_stopped_at_exit():
+    """A process that leaves a thread-mode SLAM running exits 0, its backend
+    thread stopped and joined by `_stop_at_exit` (registered with atexit).
+    The child registers its own exit hook before it imports the port, so
+    that hook runs after the port's and reads the thread's state."""
+    import subprocess
+    import sys
+
+    code = f"""
+import atexit, os, sys
+sys.path.insert(0, {REPO!r})
+seen = {{}}
+atexit.register(lambda: print("at exit: alive", seen["bt"].is_alive(),
+                              "stops", seen["bt"].handled["stop"], flush=True))
+from monogs_dev_tpu_torch.core.system import SLAM
+from monogs_dev_tpu_torch.utils.config import load_config
+cfg = load_config(os.path.join({REPO!r}, "configs/synthetic/tiny_rgbd.yaml"))
+cfg["Training"]["single_thread"] = cfg["Dataset"]["single_thread"] = False
+cfg["TPU"]["scheduler"] = "thread"
+slam = SLAM(cfg, "cpu", seed=0)
+slam.run(max_frames=3)
+seen["bt"] = slam.backend_thread
+assert seen["bt"].is_alive()
+print("left running", flush=True)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.splitlines()[-2:] == ["left running", "at exit: alive False stops 1"]
+    assert "still runs" not in proc.stderr
+
+
+def test_a_thread_that_outlives_the_exit_join_is_reported(monkeypatch, capsys):
+    """A backend thread that does not end within EXIT_JOIN_S of its stop at
+    exit (here: held by the caller) is named on stderr, not passed over."""
+    cfg = tiny_config(**{"Training.single_thread": False, "Dataset.single_thread": False,
+                         "TPU.scheduler": "thread"})
+    slam = SLAM(cfg, "cpu", seed=0)
+    slam.run(max_frames=2)
+    bt = slam.backend_thread
+    assert bt in tbackend._STARTED
+    monkeypatch.setattr(tbackend, "EXIT_JOIN_S", 0.2)
+    with bt.held():
+        tbackend._stop_at_exit()
+        assert bt.is_alive()
+    assert f"backend thread {bt.name} still runs 0.2 s after its stop" in capsys.readouterr().err
+    bt.join(60)
+    assert not bt.is_alive() and bt.handled["stop"] == 1
+
+
 def test_evaluate_and_checkpoint_in_thread_mode(tmp_path):
     """The eval tail and a checkpoint with the backend thread live: the
     thread pauses for the eval's renders, refines the colours on its own
