@@ -40,14 +40,15 @@
    tolerance against float64 autograd than its first version;
 7. monocular: `configs/synthetic/bench_vga.yaml` forced monocular through
    `SLAM`, the code path of `bench_torch.py`: warm-up until the frontend and
-   backend are initialized (by frame 162), 25 timed frames, and the checks
+   backend are initialized (by frame 162), MONO_MEAS timed frames, and the checks
    (finite poses, a full window of keyframes, scale-corrected keyframe ATE
    under 8 cm, K1/K2/K3 launched in the run);
    then PROFILE_FRAMES more frames under `torch.profiler` (each K kernel's
    device ms per frame, the device's idle share);
 8. map kernels: phase 3 again on the maps after the RGB-D init mapping,
-   at the monocular initialization and after the ingest run's first
-   keyframe (L = 1024), binned as the mapping loop bins them;
+   at the monocular initialization, after the ingest run's first
+   keyframe (L = 1024) and at the replay run's initialization, binned as
+   the mapping loop bins them;
 9. ingest (`ingest_phase`): writes a TUM-layout sequence of the bench
    scene along bench_vga's orbit
    at fr3_office's calibration (640x480, 16-bit depth at scale 5000) and
@@ -89,7 +90,21 @@
    through the Replica loader and the port's JPEG decoder, to its first
    keyframe after frame 0; the fetch under sync debug mode; every frame's
    decode on the card against the CPU's, bit for bit; K1-K3 under path
-   `replica`.
+   `replica`;
+11. replay (`replay_phase`, the `replay:` line): writes the first
+   REPLAY_FRAMES frames of the fixture-eval tool's Realsense-replay
+   sequence (`monogs_dev_tpu_torch/tools/run_fixture_evals.py`: the JAX
+   replay writer's scene, 120 frames along the ease-in orbit, 640x480) on
+   the card and runs `configs/live/realsense_replay.yaml` with the tool's
+   overrides through `load_dataset` (`RealsenseReplayDataset`) and `SLAM`
+   (monocular, 10x position_lr_init, rebinning every 4 mapping iterations):
+   the map's initialization at frame 0 (bootstrap depth, initial BA), then
+   on until the first keyframe after it has been mapped, within
+   REPLAY_BUDGET_S; checks finite poses, no monocular reset (a second
+   initialization), the Sim(3)-aligned ATE of every frame against the
+   sequence's `gt_poses.npy` (the loader's poses are identity), K1-K3
+   under path `replay`, the fetch under sync debug mode; no frame
+   profiled. Phase 3 runs again on its map at initialization (L = 512).
 
 Before the last lines it fails if a thread that Python code started (the
 backend's, a viewer's) is still alive: none may run into the teardown.
@@ -129,6 +144,9 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5  # atol: fp32 sums of ~256 pixel terms in anot
 # the absolute 1e-5 floor against float64 autograd (PERF.md, Findings)
 L2_ATOL_REL = 1e-5
 MONO_FRAME_CAP = 162  # bench.py:106: the last warm-up frame that leaves 25 to time
+# the monocular run's timed frames after initialization (bench_torch.N_MEAS,
+# 25, until the replay phase took their time)
+MONO_MEAS = 15
 MONO_ATE_BAR = 0.08  # tests/test_system.py:317
 SOURCES = {"K": "monogs_dev_tpu_torch/csrc/blend.cu", "L": "monogs_dev_tpu_torch/csrc/blend_lab.cu"}
 REPLACES = {
@@ -172,7 +190,8 @@ TUM_STRIDE = 3
 TUM_ORBIT_POSES = list(range(12)) + list(range(12, 88, TUM_STRIDE))
 INGEST_FRAMES = len(TUM_ORBIT_POSES)
 INGEST_BUDGET_S = 200.0
-RESUME_FRAMES = 3  # 8 until the dp phase took their time
+# 8 until the dp phase took their time, 3 until the replay phase's
+RESUME_FRAMES = 2
 # thread phase: the wall budget to a keyframe mapped on the backend thread
 # while the frontend tracked on, from the TUM run's frame before its keyframe
 THREAD_BUDGET_S = 200.0
@@ -187,8 +206,11 @@ DP_STEP_REPS, DP_SINGLE_ITERS = 2, 5
 DP_LOSS_RTOL, DP_MU_RTOL, DP_MU_ATOL, DP_POSE_ATOL, DP_SLOT_MU_ATOL = 1e-5, 1e-4, 1e-7, 1e-6, 1e-7
 # 24 EuRoC frames until the thread phase took their time: with 24, a host as
 # slow as the slowest seen would near the 1,200 s limit (PERF.md section 7)
-# 12 until the dp phase took their time; keyframes 0 and 7 either way
-EUROC_FRAMES, EUROC_SIZE = 8, (320, 240)
+# 12 until the dp phase took their time; keyframes 0 and 7 either way; 8
+# until the replay phase took their time, now that the fixture-eval tool's
+# stereo row runs the EuRoC path for 100 frames outside this script:
+# keyframe 0 only
+EUROC_FRAMES, EUROC_SIZE = 3, (320, 240)
 EUROC_TPU = {"capacity": 32768, "max_per_tile": 512, "k_dup": 8}
 # replica phase: configs/rgbd/replica/office0_sp.yaml as committed on a
 # Replica-layout sequence of the bench scene written on the card
@@ -203,6 +225,13 @@ REPLICA_FRAMES, REPLICA_ORBIT_N = 8, 48  # the keyframe comes at frame 5
 REPLICA_BUDGET_S = 240.0
 REPLICA_PSNR_BAR = 40.0
 PLAIN_CROP = (136, 240)
+# replay phase: the first REPLAY_FRAMES frames of the fixture-eval tool's
+# replay sequence (run_fixture_evals.run_replay: orbit_pose(i, REPLAY_ORBIT_N,
+# sweep 0.4, ease_in) at 640x480): its first keyframe after frame 0 comes at
+# frame 29 on the card (the window fills at frame 103, past this phase's
+# time); and the run's wall budget
+REPLAY_FRAMES, REPLAY_ORBIT_N = 40, 120
+REPLAY_BUDGET_S = 150.0
 STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
 # copies of the stop tests' values, synchronizations)
@@ -743,7 +772,7 @@ def profile_frames(label, slam, start: int, n: int, frame_ms: float):
 
 def mono_phase(config, dev):
     """bench_torch.py's run: bench_vga forced monocular, warm-up until both
-    halves are initialized (by frame MONO_FRAME_CAP), 25 timed frames; a
+    halves are initialized (by frame MONO_FRAME_CAP), MONO_MEAS timed frames; a
     copy of the map at initialization (for `map_kernel_phase`); then
     PROFILE_FRAMES more frames under the profiler."""
     import torch
@@ -757,7 +786,7 @@ def mono_phase(config, dev):
         snapshot.append(snapshot_map(slam, slam.frontend.kf_indices[-1], "mono init map"))
 
     B.reset_launch_counts()
-    slam, info = bench_torch.run_bench(config, dev, at_init=at_init)
+    slam, info = bench_torch.run_bench(config, dev, n_meas=MONO_MEAS, at_init=at_init)
     torch.cuda.synchronize()
     launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
     slam.stop()
@@ -768,7 +797,7 @@ def mono_phase(config, dev):
                 timers=slam.timers.summary(), telemetry=slam.engine.telemetry)
     print("mono: " + json.dumps(info), flush=True)
     print(f"mono frames/s: {info['fps']:.4f} over frames [{info['warm_frames']}, "
-          f"{info['warm_frames'] + bench_torch.N_MEAS})", flush=True)
+          f"{info['warm_frames'] + MONO_MEAS})", flush=True)
     if not info["initialized"] or info["warm_frames"] > MONO_FRAME_CAP:
         fail(f"the monocular run did not initialize by frame {MONO_FRAME_CAP}")
     if not all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras):
@@ -780,7 +809,7 @@ def mono_phase(config, dev):
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched in the monocular run")
-    start = info["warm_frames"] + bench_torch.N_MEAS
+    start = info["warm_frames"] + MONO_MEAS
     n = min(PROFILE_FRAMES, len(slam.dataset) - start)
     info["profile"] = profile_frames("mono", slam, start, n, 1e3 / info["fps"]) if n > 0 else None
     return info, snapshot[0], slam.intr, slam.raster_cfg, slam.step_cfg.mapping_rebin_dilation
@@ -1917,6 +1946,138 @@ def replica_phase(dev):
     return info, launches
 
 
+def replay_phase(dev):
+    """`configs/live/realsense_replay.yaml` with the fixture-eval tool's
+    overrides on the first REPLAY_FRAMES frames of its replay sequence,
+    written on the card, through `load_dataset` and `SLAM`, frame by frame:
+    the monocular initialization at frame 0 (the bootstrap depth sheet and
+    the initial BA at the config's 10x position_lr_init), then on until the
+    first keyframe after it has been mapped, within REPLAY_BUDGET_S. Checks
+    finite poses, no reset (a re-initialization) after it, the Sim(3)-aligned
+    ATE of every frame against `gt_poses.npy` (the loader's poses are
+    identity; the keyframes' own, from a third keyframe on: two keyframes
+    do not determine a similarity), K1-K3 launched and the fetch under sync
+    debug mode.
+    Returns (info, launches, a copy of the map at initialization for
+    `map_kernel_phase`, its intrinsics, raster config and rebin dilation)."""
+    import tempfile
+
+    import torch
+
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.data.datasets import RealsenseReplayDataset
+    from monogs_dev_tpu_torch.eval.ate import ate_rmse
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.tools import make_fixtures as mf
+    from monogs_dev_tpu_torch.tools import run_fixture_evals as rfe
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="replay_") as tmp:
+        seq = os.path.join(tmp, "replay")
+        params, active = mf.load_params(mf.REPLAY_SCENE, dev)
+        t0 = time.time()
+        ds_cfg = mf.write_replay(seq, params, active, n_frames=REPLAY_FRAMES,
+                                 orbit_n=REPLAY_ORBIT_N)
+        torch.cuda.synchronize()
+        write_s = time.time() - t0
+        del params, active
+        gt = np.load(os.path.join(seq, "gt_poses.npy"))
+        config = load_config(rfe.REPLAY_CONFIG)
+        config["Dataset"]["dataset_path"] = seq
+        config["Dataset"]["Calibration"].update(ds_cfg["Calibration"])
+        config["TPU"].update(rfe.REPLAY_TPU)
+        slam = SLAM(config, dev, seed=0)
+        fe, ds = slam.frontend, slam.dataset
+        if not isinstance(ds, RealsenseReplayDataset) or (ds.width, ds.height) != (640, 480):
+            fail("replay: the config did not load a 640x480 RealsenseReplayDataset")
+        inits = []  # frames at which the frontend (re)initialized the map
+        initialize = fe.initialize
+
+        def counting_initialize(idx, *args):
+            inits.append(idx)
+            return initialize(idx, *args)
+
+        fe.initialize = counting_initialize
+        snapshot = None
+        torch.cuda.synchronize()
+        B.reset_launch_counts()
+        t0 = time.time()
+        slam.run(max_frames=1)  # frame 0, then its initialization (the BA) pumped
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        snapshot = snapshot_map(slam, fe.kf_indices[0], "replay init map")
+        n = 1
+        while len(fe.kf_indices) < 2 and n < len(ds) and time.time() - t0 < REPLAY_BUDGET_S:
+            n += 1
+            slam.run(max_frames=n)  # ends with a keyframe's mapping pumped
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        kfs = list(fe.kf_indices)
+        frames = sorted(fe.cameras)
+        # a similarity fitted to two keyframes is not determined: their ATE
+        # only from a third on
+        ate = (ate_rmse([fe.cameras[i].T_est for i in kfs], [gt[i] for i in kfs],
+                        correct_scale=True) if len(kfs) >= 3 else None)
+        ate_all = ate_rmse([fe.cameras[i].T_est for i in frames], [gt[i] for i in frames],
+                           correct_scale=True)
+        fetch_ms = _frame_ms(slam.timers, "fetch_frame")
+        tracking_ms = _frame_ms(slam.timers, "tracking")
+        info = {
+            "config": os.path.relpath(rfe.REPLAY_CONFIG, REPO),
+            "tpu_overrides": rfe.REPLAY_TPU,
+            "size": [ds.width, ds.height],
+            "frames_written": REPLAY_FRAMES,
+            "frames_run": n,
+            "write_s": write_s,
+            "init_s": init_s,
+            "run_s": run_s,
+            "fps": n / run_s,
+            "fps_after_init": (n - 1) / (run_s - init_s) if n > 1 else None,
+            "init_frames": inits,
+            "keyframes": kfs,
+            "alive": slam.n_alive(),
+            "keyframe_ate_cm": 100.0 * ate if ate is not None else None,
+            "all_frame_ate_cm": 100.0 * ate_all,
+            "launches": launches,
+            "loader_ms_per_frame": fetch_ms,
+            "tracking_ms_per_frame": tracking_ms,
+            "loader_share": fetch_ms / tracking_ms if fetch_ms and tracking_ms else None,
+            "telemetry": slam.engine.telemetry,
+            "timers": slam.timers.summary(),
+        }
+        print("replay: " + json.dumps(info), flush=True)
+        if len(kfs) < 2:
+            fail(f"replay: no keyframe after the initialization at frame {inits[-1]} by "
+                 f"frame {n} ({REPLAY_BUDGET_S} s)")
+        if len(inits) > 1:
+            fail(f"replay: the monocular map was reset and initialized again at frames "
+                 f"{inits[1:]}")
+        if not all(np.isfinite(fe.cameras[i].T_est).all() for i in frames):
+            fail("replay: non-finite pose")
+        for label, value in (("keyframe", ate), ("all-frame", ate_all)):
+            if value is not None and not (np.isfinite(value) and value < MONO_ATE_BAR):
+                fail(f"replay: {label} ATE {value} m is not finite and under {MONO_ATE_BAR} m")
+        for name, k in launches.items():
+            if k <= 0:
+                fail(f"kernel {name} was not launched in the replay run")
+        assert_loader_never_waits("replay", fe, range(3))
+        intr, rcfg = slam.intr, slam.raster_cfg
+        dilate = slam.step_cfg.mapping_rebin_dilation
+        slam.stop()
+    info["phase_s"] = time.time() - t_phase
+    print(f"replay: {info['config']} with the fixture-eval overrides at {ds.width}x{ds.height}; "
+          f"initialized at frame {inits[-1]} in {init_s:.1f} s (initial BA); "
+          f"{info['fps']:.4f} frames/s over {n} frames ({info['fps_after_init']:.4f} after "
+          f"the initialization); keyframes {kfs}; ATE (Sim(3)) all frames "
+          f"{info['all_frame_ate_cm']:.4f} cm, keyframes {info['keyframe_ate_cm']} cm; "
+          f"loader {fetch_ms} ms a frame, {info['loader_share']:.4f} of tracking; launches "
+          f"{launches}; write {write_s:.1f} s for {REPLAY_FRAMES} frames; phase "
+          f"{info['phase_s']:.1f} s", flush=True)
+    return info, launches, snapshot, intr, rcfg, dilate
+
+
 def ingest_phase(dev):
     """Phase 9: `tum_ingest` and `euroc_ingest` in a temporary directory. Returns (tum info, euroc info, launches by
     path, the TUM map snapshot)."""
@@ -1987,6 +2148,10 @@ def main() -> int:
     phase_s["thread (in ingest)"] = thread["phase_s"]
     phase_s["dp (in ingest)"] = dp["phase_s"]
     replica, replica_launches = timed("replica", replica_phase, dev)
+    _, replay_launches, replay_snap, r_intr, r_rcfg, r_dilate = timed(
+        "replay", replay_phase, dev)
+    sets.update(timed("kernels replay map", map_kernel_phase, [replay_snap], r_intr, r_rcfg,
+                      r_dilate))
     tum_cfg = load_config(TUM_CONFIG)
     cal = tum_cfg["Dataset"]["Calibration"]
     from monogs_dev_tpu_torch.core.params import StepConfig
@@ -2002,7 +2167,7 @@ def main() -> int:
     profiled = {"mono": mono["profile"], "parity": parity["profile"]}
     paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
              "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"],
-             **ingest_launches, "replica": replica_launches}
+             **ingest_launches, "replica": replica_launches, "replay": replay_launches}
     ksets = {label: k for label, (k, _) in sets.items()}
     lsets = {label: lab for label, (_, lab) in sets.items()}
 

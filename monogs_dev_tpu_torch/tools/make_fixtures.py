@@ -6,7 +6,9 @@ Realsense-replay layouts from a synthetic scene (port of the JAX package's
 
 Frames are rendered with the port's `render_tiled` (colour) and
 `render_median_depth` (depth, 0 where alpha < 0.5) from a scene npz
-(`data/scenes/`, written by `tools/export_synthetic_scene.py`) on the given
+(`data/scenes/`, written by `tools/export_synthetic_scene.py`: by default
+`surface_seed0_n6000`, and for the replay layout the JAX replay writer's
+scene, `surface_seed2_n12000` at Gaussian scale 0.03) on the given
 device (default `cuda`; `--device cpu` renders with the plain blend), and
 written as PNG (and Replica's colour as baseline JPEG) with
 `data/image_io.py`; no PIL, cv2 or JAX.
@@ -43,6 +45,8 @@ from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import render_median_depth, render_tiled
 
 DEFAULT_SCENE = os.path.join(SCENE_DIR, scene_file_name("surface", 0, 6000))
+# tools/make_replay_fixture.py:41-43: make_surface_scene(PRNGKey(2), n=12000, scale=0.03)
+REPLAY_SCENE = os.path.join(SCENE_DIR, scene_file_name("surface", 2, 12000))
 WRITER_RASTER = RasterConfig(max_per_tile=512, k_dup=16)
 REPLAY_RASTER = RasterConfig(max_per_tile=512, k_dup=8)  # the JAX replay writer's
 
@@ -176,15 +180,16 @@ def write_euroc(out_dir: str, params, active, n_frames: int = 12, w: int = 160,
 
 
 def write_replay(out_dir: str, params, active, n_frames: int = 120, w: int = 640,
-                 h: int = 480) -> Dict:
-    """Colour frames along orbit_pose(i, n_frames, sweep=0.4,
-    profile="ease_in"), no ground truth for the loader (identity, as live
-    capture); returns the Dataset group."""
+                 h: int = 480, orbit_n: Optional[int] = None) -> Dict:
+    """Colour frames 0..n_frames-1 along orbit_pose(i, orbit_n, sweep=0.4,
+    profile="ease_in") (orbit_n defaults to n_frames; a larger one writes
+    the first frames of that longer sequence), no ground truth for the
+    loader (identity, as live capture); returns the Dataset group."""
     fx = 0.9 * w
     intr = Intrinsics(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0, width=w, height=h)
     color_dir = os.path.join(out_dir, "color")
     os.makedirs(color_dir, exist_ok=True)
-    poses = orbit(n_frames, sweep=0.4, profile="ease_in")
+    poses = orbit(n_frames, n=orbit_n, sweep=0.4, profile="ease_in")
     for i, T in enumerate(poses):
         color, _ = render_rgbd(params, active, T, intr, REPLAY_RASTER, depth=False)
         write_png(os.path.join(color_dir, f"{i:06d}.png"),
@@ -202,7 +207,9 @@ def main(argv=None) -> int:
     ap.add_argument("out_dir")
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--size", default="160x120", help="WxH")
-    ap.add_argument("--scene", default=DEFAULT_SCENE)
+    ap.add_argument("--scene", default=None,
+                    help="scene npz (default: surface_seed2_n12000 for replay, else "
+                         "surface_seed0_n6000)")
     ap.add_argument("--sweep", type=float, default=0.45, help="TUM and Replica orbit sweep")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -211,7 +218,8 @@ def main(argv=None) -> int:
         raise SystemExit("no CUDA device: the writer renders on a card "
                          "(--device cpu renders with the plain blend)")
     w, h = (int(v) for v in args.size.split("x"))
-    params, active = load_params(args.scene, device)
+    scene = args.scene or (REPLAY_SCENE if args.layout == "replay" else DEFAULT_SCENE)
+    params, active = load_params(scene, device)
     if args.layout in ("tum", "replica"):
         fx = 0.9 * w
         intr = Intrinsics(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0, width=w, height=h)

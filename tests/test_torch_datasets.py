@@ -9,7 +9,9 @@ package's (`monogs_dev_tpu/data/datasets.py`), which read with PIL and cv2.
   EuRoC directory from the port's writer (160x120, 6 frames). EuRoC depth
   comes from the matcher, which is not cv2's to the bit: it is held equal
   where the two matchers' disparities are equal, and those must be at least
-  90% of the pixels.
+  99.5% of the pixels. With the uniqueness test off or loose (ratio 0 or
+  10) in both matchers they are equal bit for bit, so what remains lies in
+  that test (`data/stereo.py`'s docstring).
 - Maps: the undistort and rectify maps within 1e-3 px of
   `cv2.initUndistortRectifyMap` on configs/stereo/euroc/mh02.yaml's two eyes
   and configs/rgbd/tum/fr1_desk.yaml; remapped uint8 images within 1 level
@@ -17,8 +19,10 @@ package's (`monogs_dev_tpu/data/datasets.py`), which read with PIL and cv2.
 - Stereo: on the port's EuRoC pair, the JAX test's bars
   (tests/test_datasets.py:306-309): valid share > 0.15 and median relative
   error < 0.1 against `render_median_depth`; where both matchers give a
-  valid disparity, the port's within 1 px of cv2's on >= 80% of pixels; a
-  block texture shifted by 16 px gives 16 px.
+  valid disparity, the port's within 1 px of cv2's on every pixel and equal
+  to it on >= 99.5%; a block texture shifted by 16 px gives 16 px;
+  `median3x3` equal to `cv2.medianBlur(int16, 3)` bit for bit, borders and
+  -16 values included.
 - `render_median_depth` within 1e-4 m of the JAX one on >= 99.5% of pixels.
 - The TUM writer against the JAX package's `render_tiled` and
   `render_median_depth` with the same scene: colour equal on >= 99.9% of
@@ -44,8 +48,9 @@ from monogs_dev_tpu.data import datasets as J
 from monogs_dev_tpu.utils.config import DotDict, load_config
 from monogs_dev_tpu_torch.data import camera_maps
 from monogs_dev_tpu_torch.data import datasets as T
+from monogs_dev_tpu_torch.data import stereo
 from monogs_dev_tpu_torch.data.image_io import read_png
-from monogs_dev_tpu_torch.data.stereo import sgbm_disparity
+from monogs_dev_tpu_torch.data.stereo import INVALID, median3x3, sgbm_disparity
 from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
 from monogs_dev_tpu_torch.models.camera import Intrinsics
 from monogs_dev_tpu_torch.ops.raster_types import RasterConfig
@@ -226,6 +231,25 @@ def test_replay_writer_reads_back(tmp_path):
     assert np.load(str(tmp_path / "replay" / "gt_poses.npy")).shape == (3, 4, 4)
 
 
+def test_replay_scene_is_the_jax_replay_writers():
+    """The replay layout's default scene (`make_fixtures.REPLAY_SCENE`) is
+    what tools/make_replay_fixture.py renders, make_surface_scene(PRNGKey(2),
+    n=12000, scale=0.03), field for field, and `load_params` reads it so."""
+    import jax
+
+    from monogs_dev_tpu.data.synthetic import make_surface_scene
+
+    ref, _ = make_surface_scene(jax.random.PRNGKey(2), n=12000, scale=0.03)
+    with np.load(mf.REPLAY_SCENE) as z:
+        arrays = dict(z)
+    assert float(arrays["gaussian_scale"]) == np.float32(0.03)
+    params, active = mf.load_params(mf.REPLAY_SCENE, "cpu")
+    assert bool(active.all()) and active.shape == (12000,)
+    for name, value in ref._asdict().items():
+        np.testing.assert_array_equal(arrays[f"params.{name}"], np.asarray(value, np.float32))
+        np.testing.assert_array_equal(getattr(params, name).numpy(), np.asarray(value))
+
+
 def test_fixture_writer_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = str(tmp_path / "replay")
@@ -262,8 +286,38 @@ def test_euroc_writer_and_loader_match_jax(euroc):
         sg = cv2.StereoSGBM_create(minDisparity=0, numDisparities=64, blockSize=20)
         sg.setUniquenessRatio(40)
         same = sg.compute(left, right) == sgbm_disparity(lt, rt).numpy()
-        assert same.mean() >= 0.9
+        print(f"frame {i}: the port's disparity equals cv2's on {same.mean():.2%} of "
+              f"pixels ({int((~same).sum())} differ)")
+        assert same.mean() >= 0.995
         assert np.array_equal(dj[same], dt[same])
+
+
+@pytest.mark.parametrize("ratio", [0, 10])
+def test_matcher_with_a_loose_uniqueness_test_equals_cv2(euroc, monkeypatch, ratio):
+    """With the uniqueness test off (ratio 0) or loose (10) in both, the
+    port's disparity is cv2's bit for bit: costs, paths, sub-pixel step,
+    left-right check and median; what is left at ratio 40 lies in the
+    uniqueness test."""
+    t = T.load_dataset(euroc[0], "cpu")
+    monkeypatch.setattr(stereo, "UNIQUENESS_RATIO", ratio)
+    sg = cv2.StereoSGBM_create(minDisparity=0, numDisparities=64, blockSize=20)
+    sg.setUniquenessRatio(ratio)
+    for i in (1, 4):
+        lt, rt = t.rectified_pair(i)
+        assert np.array_equal(sg.compute(lt.numpy(), rt.numpy()), sgbm_disparity(lt, rt).numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (2, 3), (5, 1), (9, 11), (120, 160)])
+def test_median_matches_cv2_median_blur(shape):
+    """`median3x3` against `cv2.medianBlur(int16, 3)` bit for bit: replicated
+    borders, runs of invalid (-16) values, the first NUM_DISP columns."""
+    rng = np.random.default_rng(sum(shape))
+    img = rng.integers(-16, 1100, shape).astype(np.int16)
+    img[rng.random(shape) < 0.3] = INVALID
+    img[:, :min(shape[1], stereo.NUM_DISP) // 2] = INVALID
+    got = median3x3(torch.from_numpy(img.astype(np.int32)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), cv2.medianBlur(img, 3))
 
 
 def _euroc_eye_maps(eye):
@@ -319,7 +373,8 @@ def test_stereo_depth_on_the_euroc_pair(euroc):
     mine = sgbm_disparity(lt, rt).numpy().astype(np.int64)
     both = (ref >= 0) & (mine >= 0)
     assert both.mean() > 0.15
-    assert (np.abs(ref - mine)[both] <= 16).mean() >= 0.8
+    assert (np.abs(ref - mine)[both] <= 16).all()
+    assert (ref == mine)[both].mean() >= 0.995
 
 
 def test_stereo_matcher_finds_a_known_shift():

@@ -487,16 +487,18 @@ def test_png_unfilter_on_card_machine_matches_plain(cuda, tmp_path):
         assert np.array_equal(image_io.decode_png(image_io.encode_png(arr)), arr)
 
 
-def _euroc_pair(dev):
+def _euroc_pair(dev, w=160, h=120):
+    """Frame 1 of `write_euroc`'s rectified pair at w x h, as grey uint8."""
     from monogs_dev_tpu_torch.data.synthetic import SCENE_DIR
     from monogs_dev_tpu_torch.models.camera import Intrinsics as I
     from monogs_dev_tpu_torch.tools import make_fixtures as mf
 
     params, active = mf.load_params(os.path.join(SCENE_DIR, "surface_seed0_n6000.npz"), dev)
-    intr = I(fx=144.0, fy=144.0, cx=80.0, cy=60.0, width=160, height=120)
+    fx = 0.9 * w
+    intr = I(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0, width=w, height=h)
     T = mf.orbit_pose(1, 40, sweep=0.45).astype(np.float32)
     T_r = T.copy()
-    T_r[0, 3] -= 47.90639384423901 / 144.0
+    T_r[0, 3] -= 47.90639384423901 / fx
     gray = []
     for pose in (T, T_r):
         color, _ = mf.render_rgbd(params, active, pose, intr, depth=False)
@@ -529,6 +531,31 @@ def test_matcher_and_remap_on_card_match_cpu(cuda):
     n_diff = int((r_cpu != r_gpu).sum())
     print(f"remap: {n_diff} of {r_cpu.numel()} values differ between cuda and cpu")
     assert n_diff == 0
+
+
+@pytest.mark.gpu
+def test_matcher_with_median_on_card_matches_cpu_at_320x240(cuda):
+    """cv2's 3x3 median after the matcher (`median3x3`, integer sort) on the
+    fixture-eval stereo row's size: the card's disparity equals the CPU's
+    bit for bit, and the median alone on random int32 images with invalid
+    (-16) runs does too."""
+    from monogs_dev_tpu_torch.data.stereo import INVALID, median3x3, sgbm_disparity
+
+    left, right = _euroc_pair("cpu", 320, 240)
+    lc, rc = torch.from_numpy(left), torch.from_numpy(right)
+    d_cpu = sgbm_disparity(lc, rc)
+    d_gpu = sgbm_disparity(lc.to(cuda), rc.to(cuda)).cpu()
+    assert d_gpu.dtype == torch.int32 and d_gpu.shape == (240, 320)
+    assert (d_cpu >= 0).float().mean() > 0.15
+    n_diff = int((d_cpu != d_gpu).sum())
+    print(f"matcher with median, 320x240: {n_diff} of {d_cpu.numel()} pixels differ")
+    assert n_diff == 0
+    rng = np.random.default_rng(12)
+    for shape in ((1, 1), (2, 3), (240, 320)):
+        img = rng.integers(-16, 1024, shape).astype(np.int32)
+        img[rng.random(shape) < 0.3] = INVALID
+        t = torch.from_numpy(img)
+        assert torch.equal(median3x3(t.to(cuda)).cpu(), median3x3(t))
 
 
 @pytest.mark.gpu

@@ -18,7 +18,11 @@ the data-parallel `_map_dp`, and renders through `render_reference`. A
 fifth, with jax, PIL and cv2 blocked, writes a Replica sequence (JPEG
 colour) with the port's writer and runs `configs/rgbd/replica/office0_sp.yaml`
 on it, cut to a small frame and a few iterations, through the port's JPEG
-decoder."""
+decoder. A sixth, with jax, PIL and cv2 blocked, runs the port's
+fixture-eval tool (`tools/run_fixture_evals.py`) on its replay row, cut to
+64x48, 7 frames and a few iterations: the JAX replay writer's scene, the
+Realsense-replay loader, the monocular path of
+`configs/live/realsense_replay.yaml` and the eval tail."""
 
 import os
 import subprocess
@@ -55,6 +59,7 @@ import bench_torch
 from monogs_dev_tpu_torch.ops import blend_lab as BL
 assert "monogs_dev_tpu_torch.ops.blend_lab" in names
 assert "monogs_dev_tpu_torch.tools.kernel_lab" in names
+assert "monogs_dev_tpu_torch.tools.run_fixture_evals" in names
 props = torch.zeros((2, 32, 10))
 props[:, :, :2] = 8.0
 props[:, :, 2] = props[:, :, 4] = 0.1
@@ -287,3 +292,37 @@ def test_replica_path_without_pil_cv2_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "ok", proc.stdout
+
+
+FIXTURE_EVAL = r"""
+import json, os, sys, tempfile
+for name in ("jax", "PIL", "cv2"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.tools import run_fixture_evals as rfe
+from monogs_dev_tpu_torch.utils.config import load_config
+
+def short(path):
+    cfg = load_config(path)
+    cfg["Training"].update(init_itr_num=10, mapping_itr_num=3, tracking_itr_num=5)
+    return cfg
+
+rfe._base_config = short
+rfe.REFINEMENT_ITERS = 3
+with tempfile.TemporaryDirectory() as d:
+    assert rfe.main(["replay", "--frames", "7", "--size", "64x48", "--device", "cpu",
+                     "--out", d]) == 0
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_fixture_eval_tool_without_pil_cv2_or_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", FIXTURE_EVAL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    row = [ln for ln in proc.stdout.splitlines() if ln.startswith("REPLAY ROW ")]
+    assert len(row) == 1 and proc.stdout.splitlines()[-1] == "ok", proc.stdout[-3000:]
