@@ -104,7 +104,17 @@
    initialization), the Sim(3)-aligned ATE of every frame against the
    sequence's `gt_poses.npy` (the loader's poses are identity), K1-K3
    under path `replay`, the fetch under sync debug mode; no frame
-   profiled. Phase 3 runs again on its map at initialization (L = 512).
+   profiled. Phase 3 runs again on its map at initialization (L = 512);
+12. scale (`scale_phase`, the `scale:` lines):
+   `configs/synthetic/scale_vga.yaml` as committed (640x480, capacity
+   131,072, small tier 65,536, densify budgets 8,192 / 4,096, the committed
+   24,000-Gaussian surface scene) through `SLAM` from frame 0 to its first
+   keyframe after the initialization; then the map compacted to the power
+   of two above its alive rows plus 8 (the visibility remapped with it) and
+   run on until a keyframe's insert grows it back to 131,072 rows and that
+   keyframe's mapping round has run, within SCALE_BUDGET_S; checks the
+   growth, every map field finite, finite poses, K1-K3 under path `scale`
+   (the whole 240-frame sweep runs in `run_fixture_evals.py scale`).
 
 Before the last lines it fails if a thread that Python code started (the
 backend's, a viewer's) is still alive: none may run into the teardown.
@@ -112,7 +122,8 @@ backend's, a viewer's) is still alive: none may run into the teardown.
 The line before the last lists every kernel with its launches, its largest
 error against its plain version, its time, the plain version's time and
 its bound on an H100 (`bound_ms`: the larger of the bytes it must move over
-3.35 TB/s and the fp32 operations this run's data needs over 67 TFLOP/s);
+3.35 TB/s and the fp32 operations this run's data needs over 67 TFLOP/s;
+`kernel_ms` and `bound` are `monogs_dev_tpu_torch/ops/blend_timing.py`'s);
 each also with the first version's time (`ms_v1`), the wrapper's
 (`wrapper_ms`) and all of these on every prop set (`sets`). The last line
 is {"ok": true, "device": {...}}; any failed check exits non-zero before it.
@@ -134,6 +145,9 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# kernel-only times and the H100 bound, shared with tools/run_fixture_evals.py
+from monogs_dev_tpu_torch.ops.blend_timing import bound, kernel_ms  # noqa: E402
 CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga.yaml")
 PARITY_CONFIG = os.path.join(REPO, "configs", "synthetic", "bench_vga_parity.yaml")
 N_FRAMES = 12  # frames 2..11 give the tracked frames/s
@@ -156,9 +170,6 @@ REPLACES = {
     "L1": "tools/kernel_lab.py:418",
     "L2": "tools/kernel_lab.py:479",
 }
-# kernel-only timing (kernel_ms): median over ROUNDS rounds of BURST launches,
-# each burst queued behind ~1 ms of device sleep
-ROUNDS, BURST, SLEEP_CYCLES = 21, 20, 2_000_000
 # monocular frames profiled after the timed window, fewer where the sequence
 # ends first (20 until the parity phase took their time, 8 until the
 # ingest's, 4 until the dp phase's)
@@ -232,50 +243,15 @@ PLAIN_CROP = (136, 240)
 # time); and the run's wall budget
 REPLAY_FRAMES, REPLAY_ORBIT_N = 40, 120
 REPLAY_BUDGET_S = 150.0
+# scale phase: configs/synthetic/scale_vga.yaml as committed, to its first
+# keyframe after the initialization, then the growth path forced; the run's
+# wall budget (the whole sweep runs in run_fixture_evals.py's scale row)
+SCALE_CONFIG = os.path.join(REPO, "configs", "synthetic", "scale_vga.yaml")
+SCALE_BUDGET_S = 240.0
 STEREO_VALID_BAR, STEREO_REL_BAR = 0.15, 0.1  # tests/test_datasets.py:306-309
 # CUDA runtime calls in which the host waits for the device (device-to-host
 # copies of the stop tests' values, synchronizations)
 HOST_WAIT_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize")
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s
-HBM_BPS, FP32_OPS = 3.35e12, 67e12
-# fp32 ops per (entry, pixel) pair whose alpha the blend uses, counted from
-# the sources (expf, log1pf and a division as one op each, compares counted;
-# the gradients' pixel sums as one add per component): K1 29, K3 30 (+ the
-# touch test), L1 32 (trimat 34, rank-6 31), K2 63 (an alpha at its clamp
-# skips 22 of them), L2 61 (40 in the pixel pass, 11 moments FFMA)
-OPS_PER_PAIR = {"K1": 29, "K3": 30, "K2": 63, "L2": 61, "L1": 32, "L1/trimat": 34,
-                "L1/mxu": 31, "L1/lean": 31}
-# finding those pairs (csrc/blend.cu): an entry's reach box (`entry_reach`,
-# 27 ops), and the box against a warp's 32-pixel strip (`misses`, 6 ops)
-REACH_OPS, STRIP_OPS = 27, 6
-
-
-def bound(name, counts, n_done, touch, p):
-    """(bound_ms, bound_by) of kernel `name` on one call: bytes over HBM_BPS
-    against ops over FP32_OPS. Bytes count the blended entries' props
-    (sum(counts) x 40 B) and the per-pixel tensors once. Ops count the work
-    this run's data needs, the same for every kernel of one function:
-    OPS_PER_PAIR for each pair of a pixel and an entry it multiplies in with
-    alpha >= alpha_min (sum(touch), exact: the plain version's touch counts
-    just those pairs); the other pairs have alpha 0 and add nothing. Finding
-    them costs REACH_OPS per entry up to the last one its tile multiplies in
-    and STRIP_OPS per (entry, 32-pixel strip) up to the strip's last."""
-    entries = float(counts.sum())
-    t = counts.shape[0]
-    px_bytes = 4.0 * t * p
-    if name.startswith("L1"):
-        nbytes = 40 * entries + 4 * t + 5 * px_bytes
-    elif name in ("K2", "L2"):
-        nbytes = 40 * entries + 7 * px_bytes + 40 * entries  # props in, d_props out
-    else:  # K1, K3: color, depth, alpha, t_final, n_done (+ touch)
-        nbytes = 40 * entries + 4 * t + 7 * px_bytes + (4 * entries if name == "K3" else 0)
-    strips = n_done.reshape(t, p // 32, 32).amax(dim=2)  # entries each strip multiplies in
-    ops = (float(touch.sum()) * OPS_PER_PAIR.get(name, OPS_PER_PAIR[name[:2]])
-           + REACH_OPS * float(strips.amax(dim=1).sum()) + STRIP_OPS * float(strips.sum()))
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / FP32_OPS
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -313,34 +289,6 @@ def timed(fn):
     e.record()
     e.synchronize()
     return out, s.elapsed_time(e)
-
-
-def kernel_ms(launchers) -> dict:
-    """Kernel-only milliseconds per launch of each zero-argument launcher
-    (a C entry point into preallocated outputs, ops/blend.py): the median
-    over ROUNDS rounds of BURST back-to-back launches between two CUDA
-    events, the launchers in turns (in reverse order in every other round).
-    Each burst is queued behind a device sleep, so the host's launch cost
-    stays out of the window."""
-    import torch
-
-    for fn in launchers.values():
-        fn()
-    torch.cuda.synchronize()
-    names = list(launchers)
-    times = {n: [] for n in names}
-    for r in range(ROUNDS):
-        for n in names if r % 2 == 0 else names[::-1]:
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SLEEP_CYCLES)
-            s.record()
-            for _ in range(BURST):
-                launchers[n]()
-            e.record()
-            e.synchronize()
-            times[n].append(s.elapsed_time(e) / BURST)
-    return {n: statistics.median(v) for n, v in times.items()}
 
 
 def smi_line() -> str:
@@ -2078,6 +2026,118 @@ def replay_phase(dev):
     return info, launches, snapshot, intr, rcfg, dilate
 
 
+def scale_phase(dev):
+    """`configs/synthetic/scale_vga.yaml` as committed (640x480, capacity
+    131,072, small tier 65,536, densify budgets 8,192 / 4,096) through
+    `SLAM`, from frame 0 to its first keyframe after the initialization;
+    then the growth path forced as
+    tests/test_system.py::test_grow_back_under_insert_pressure forces it:
+    the map compacted to the power of two above its alive rows plus 8, the
+    visibility remapped with it, and on until a keyframe's insert has grown
+    it back and that keyframe's mapping round has run, within
+    SCALE_BUDGET_S. Checks map_grows >= 1, the rows back at the capacity,
+    every field of the map finite after that round, finite poses and K1-K3
+    launched under path `scale`. Returns (info, launches)."""
+    import torch
+
+    from monogs_dev_tpu_torch.core.backend import _next_pow2
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.models.gaussians import compact_map
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    t_phase = time.time()
+    config = load_config(SCALE_CONFIG)
+    slam = SLAM(config, dev, seed=0)
+    fe, e, ds = slam.frontend, slam.engine, slam.dataset
+    if (ds.width, ds.height, e.capacity, e.tier_small) != (640, 480, 131072, 65536):
+        fail("scale: the config did not load at 640x480 with capacity 131,072 and tier 65,536")
+    grown_at = []
+    add_next_kf = e.add_next_kf
+
+    def recording_add(frame_idx, *args, **kw):
+        before = e.telemetry["map_grows"]
+        out = add_next_kf(frame_idx, *args, **kw)
+        if e.telemetry["map_grows"] > before:
+            grown_at.append(frame_idx)
+        return out
+
+    e.add_next_kf = recording_add
+    torch.cuda.synchronize()
+    B.reset_launch_counts()
+    t0 = time.time()
+    slam.run(max_frames=1)  # frame 0 and its initialization
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n = 1
+    while len(fe.kf_indices) < 2 and n < len(ds) and time.time() - t0 < SCALE_BUDGET_S:
+        n += 1
+        slam.run(max_frames=n)  # ends with a keyframe's mapping pumped
+    if len(fe.kf_indices) < 2:
+        fail(f"scale: no keyframe after the initialization by frame {n} ({SCALE_BUDGET_S} s)")
+    first_kf = fe.kf_indices[-1]
+    alive = slam.n_alive()
+    rows = e.map_rows()
+    tight = _next_pow2(alive + 8)
+    if tight >= rows:
+        fail(f"scale: {alive} alive rows leave no tier under {rows}")
+    e.gmap, perm = compact_map(e.gmap, tight)
+    perm = perm.cpu().numpy()
+    for k, v in list(e.occ_aware_visibility.items()):
+        out = np.zeros(e.capacity, bool)
+        out[:tight] = np.asarray(v)[perm[:tight]]
+        e.occ_aware_visibility[k] = out
+    t_grow = time.time()
+    while not grown_at and n < len(ds) and time.time() - t0 < SCALE_BUDGET_S:
+        n += 1
+        slam.run(max_frames=n)  # the growing keyframe's insert, then its mapping round
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+    bad_fields = [name for name, x in _map_fields(e.gmap)
+                  if x.is_floating_point() and not bool(torch.isfinite(x).all())]
+    poses_finite = all(np.isfinite(fe.cameras[i].T_est).all() for i in fe.cameras)
+    info = {
+        "config": os.path.relpath(SCALE_CONFIG, REPO),
+        "size": [ds.width, ds.height],
+        "capacity": e.capacity,
+        "tier_small": e.tier_small,
+        "frames_run": n,
+        "init_s": init_s,
+        "to_growth_s": time.time() - t_grow,
+        "run_s": run_s,
+        "first_keyframe": first_kf,
+        "alive_at_first_keyframe": alive,
+        "tiers": [rows, tight, e.map_rows()],
+        "grown_at_frame": grown_at,
+        "alive": slam.n_alive(),
+        "keyframes": list(fe.kf_indices),
+        "launches": launches,
+        "telemetry": e.telemetry,
+    }
+    slam.stop()
+    info["phase_s"] = time.time() - t_phase
+    print("scale: " + json.dumps(info), flush=True)
+    if not grown_at or e.telemetry["map_grows"] < 1:
+        fail(f"scale: no keyframe insert grew the {tight}-row tier by frame {n} "
+             f"({SCALE_BUDGET_S} s)")
+    if e.map_rows() != e.capacity:
+        fail(f"scale: {e.map_rows()} rows after the growth, not the capacity {e.capacity}")
+    if bad_fields:
+        fail(f"scale: non-finite map fields after the growing keyframe's round: {bad_fields}")
+    if not poses_finite:
+        fail("scale: non-finite pose")
+    for name, k in launches.items():
+        if k <= 0:
+            fail(f"kernel {name} was not launched in the scale run")
+    print(f"scale: {info['config']} at {ds.width}x{ds.height}, capacity {e.capacity}; "
+          f"initialized in {init_s:.1f} s; first keyframe {first_kf} with {alive} alive; tiers "
+          f"{rows} -> {tight} (forced) -> {e.map_rows()} rows, grown at frame {grown_at}; "
+          f"{info['alive']} alive at frame {n - 1}; launches {launches}; phase "
+          f"{info['phase_s']:.1f} s", flush=True)
+    return info, launches
+
+
 def ingest_phase(dev):
     """Phase 9: `tum_ingest` and `euroc_ingest` in a temporary directory. Returns (tum info, euroc info, launches by
     path, the TUM map snapshot)."""
@@ -2109,7 +2169,6 @@ def main() -> int:
     print(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    sys.path.insert(0, REPO)
     from monogs_dev_tpu_torch.ops import blend as B
     from monogs_dev_tpu_torch.utils.config import load_config
 
@@ -2152,6 +2211,7 @@ def main() -> int:
         "replay", replay_phase, dev)
     sets.update(timed("kernels replay map", map_kernel_phase, [replay_snap], r_intr, r_rcfg,
                       r_dilate))
+    _, scale_launches = timed("scale", scale_phase, dev)
     tum_cfg = load_config(TUM_CONFIG)
     cal = tum_cfg["Dataset"]["Calibration"]
     from monogs_dev_tpu_torch.core.params import StepConfig
@@ -2167,7 +2227,8 @@ def main() -> int:
     profiled = {"mono": mono["profile"], "parity": parity["profile"]}
     paths = {"rgbd_gn": gn_launches, "parity_adam": parity["launches"],
              "parity_eval": parity["eval_launches"], "mono_gn": mono["launches"],
-             **ingest_launches, "replica": replica_launches, "replay": replay_launches}
+             **ingest_launches, "replica": replica_launches, "replay": replay_launches,
+             "scale": scale_launches}
     ksets = {label: k for label, (k, _) in sets.items()}
     lsets = {label: lab for label, (_, lab) in sets.items()}
 

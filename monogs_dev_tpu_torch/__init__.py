@@ -10,7 +10,8 @@ versions. The layout mirrors the JAX package:
   ops/       projection, binning, blend kernels, kNN
   core/      Gauss-Newton tracking, mapping, keyframe insertion, frontend,
              backend and the SLAM system
-  data/      synthetic scenes exported from the JAX package
+  data/      synthetic scenes (the JAX package's, or drawn here) and the
+             real-data loaders
   utils/     config, logging, losses, timers
   eval/      ATE
 """

@@ -15,8 +15,12 @@ rendered pairs, `tests/test_torch_datasets.py`):
     (blockSize 20 -> half-width 10), borders replicated;
   - five aggregation paths (left, top-left, top, top-right, right), each
     L(p, d) = C(p, d) + min(L(p-r, d), L(p-r, d+-1) + P1,
-    min_k L(p-r, k) + P2) - (min_k L(p-r, k) + P2), with P1 = 2 and P2 = 5,
-    and 0 outside the image;
+    min_k L(p-r, k) + P2) - min_k L(p-r, k), with P1 = 2 and P2 = 5, and 0
+    outside the image (cv2 stores C + P2 and subtracts min_k L + P2, which
+    is the same);
+  - the five paths summed and saturated at 32767, as cv2 keeps the sum in
+    int16 (every L is >= C >= 0, so one clamp of the whole sum equals
+    cv2's saturating adds);
   - winner takes all over the summed paths, rejected unless every
     disparity more than 1 away costs at least 100/(100-40) times the best;
   - a parabola through the best cost and its neighbours for 1/16 pixel;
@@ -31,14 +35,12 @@ Disparities are fixed point x16; invalid ones, and the first NUM_DISP
 columns, are -16. Everything is integer arithmetic, so the result does not
 depend on the device.
 
-What remains against cv2 (tests/test_torch_datasets.py): on the EuRoC
-writer's pairs the two agree on 99.8-99.9% of pixels. With the uniqueness
-test off or loose in both (ratio 0 or 10) they agree on every pixel, so the
-rest lies in the uniqueness test at ratio 40: cv2 rejects a few pixels that
-the port keeps, each next to invalid ones, whose nearest rival (2
-disparities from the best) sits just above the threshold in the port's
-costs, no closer than rivals of pixels both keep; the median smears each
-into a cluster of a few pixels.
+On the EuRoC writer's pairs the result equals cv2's on every pixel at every
+uniqueness ratio from 0 to 80 (tests/test_torch_datasets.py). cv2 keeps
+the block costs and the paths in int16 too, where a block cost over 32767
+would wrap; only the sum's saturation is modelled, as block costs stay far
+below that on images (at most ~19,500 on those pairs; the ceiling is
+93 x 21^2).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ P1, P2 = 2, 5
 PREFILTER_CAP = 15
 DISP12_MAX_DIFF = 1
 DISP_SCALE = 16
+COST_MAX = 32767  # cv2's costs are int16
 INVALID = -DISP_SCALE  # (minDisparity - 1) * 16
 
 
@@ -121,12 +124,13 @@ def _step(c: torch.Tensor, prev: torch.Tensor, prev_min: torch.Tensor) -> torch.
     big = torch.full_like(prev[..., :1], 1 << 28)
     lo = torch.cat([big, prev[..., :-1]], dim=-1) + P1
     hi = torch.cat([prev[..., 1:], big], dim=-1) + P1
-    delta = prev_min + P2
-    return c + torch.minimum(torch.minimum(prev, delta), torch.minimum(lo, hi)) - delta
+    jump = prev_min + P2
+    return c + torch.minimum(torch.minimum(prev, jump), torch.minimum(lo, hi)) - prev_min
 
 
 def aggregate(c: torch.Tensor) -> torch.Tensor:
-    """(H, W1, D) block costs -> the sum of the five path costs."""
+    """(H, W1, D) block costs -> the sum of the five path costs, saturated
+    at COST_MAX."""
     h, w1, d = c.shape
     total = torch.zeros_like(c)
     # left-to-right and right-to-left, every row at once
@@ -146,7 +150,7 @@ def aggregate(c: torch.Tensor) -> torch.Tensor:
         cur = _step(c[y][None], shifted, shifted.amin(dim=-1, keepdim=True))
         total[y] += cur.sum(dim=0)
         prev = cur
-    return total
+    return torch.clamp(total, max=COST_MAX)
 
 
 def median3x3(disp: torch.Tensor) -> torch.Tensor:
@@ -160,7 +164,8 @@ def median3x3(disp: torch.Tensor) -> torch.Tensor:
     return torch.sort(nine, dim=0).values[4]
 
 
-def sgbm_disparity(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+def sgbm_disparity(left: torch.Tensor, right: torch.Tensor,
+                   uniqueness_ratio: int = UNIQUENESS_RATIO) -> torch.Tensor:
     """(H, W) uint8 rectified pair -> (H, W) int32 disparity x16 of the left
     image, INVALID where no match was accepted, after cv2's 3x3 median."""
     left = left.to(torch.int32)
@@ -171,7 +176,7 @@ def sgbm_disparity(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     min_s, best = s.min(dim=-1)  # the first minimum, as cv2's strict `<`
     ds = torch.arange(NUM_DISP, device=dev)
     far = (ds[None, None, :] - best[..., None]).abs() > 1
-    unique = ~((s * (100 - UNIQUENESS_RATIO) < min_s[..., None] * 100) & far).any(dim=-1)
+    unique = ~((s * (100 - uniqueness_ratio) < min_s[..., None] * 100) & far).any(dim=-1)
 
     # sub-pixel: a parabola through the neighbours, C's truncating division
     sm = torch.gather(s, 2, torch.clamp(best - 1, 0, NUM_DISP - 1)[..., None])[..., 0]

@@ -2,8 +2,9 @@
 
 Keys: ``params.<field>``, ``aux.<field>``, ``mu.<field>``, ``nu.<field>``
 and ``count`` for a map; ``mu``, ``nu``, ``count`` for keyframe optimizer
-state; the `KeyframeBatch` field names for a keyframe batch. The same layout
-is written by `tools/export_synthetic_scene.py` and read by the scene loader.
+state; the `KeyframeBatch` field names for a keyframe batch. A synthetic
+scene's npz (the JAX package's scene, which `data/synthetic.py::load_scene`
+reads) has the map's ``params.<field>`` keys.
 """
 
 from __future__ import annotations

@@ -559,6 +559,21 @@ def test_matcher_with_median_on_card_matches_cpu_at_320x240(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["blobs", "surface"])
+def test_scene_generator_gives_the_same_scene_on_card_and_cpu(cuda, kind):
+    """A seed draws the same scene on the card as on the CPU: the draws and
+    their arithmetic run on the CPU, and the result moves to the device."""
+    from monogs_dev_tpu_torch.data.synthetic import make_surface_scene, make_synthetic_scene
+
+    make = make_surface_scene if kind == "surface" else make_synthetic_scene
+    on_cpu, _ = make(4000, generator=torch.Generator().manual_seed(7))
+    on_card, active = make(4000, generator=torch.Generator().manual_seed(7), device=cuda)
+    assert active.device.type == "cuda" and bool(active.all())
+    for a, b in zip(on_cpu.values(), on_card.values()):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
 def test_tum_loader_on_cuda_returns_cuda_tensors(cuda):
     from monogs_dev_tpu_torch.data.datasets import load_dataset
 

@@ -22,7 +22,9 @@ decoder. A sixth, with jax, PIL and cv2 blocked, runs the port's
 fixture-eval tool (`tools/run_fixture_evals.py`) on its replay row, cut to
 64x48, 7 frames and a few iterations: the JAX replay writer's scene, the
 Realsense-replay loader, the monocular path of
-`configs/live/realsense_replay.yaml` and the eval tail."""
+`configs/live/realsense_replay.yaml` and the eval tail. A seventh, with jax
+blocked, runs the tiny RGB-D config at a seed whose scene is not committed,
+on the scene the port's own generator draws (`data/synthetic.py`)."""
 
 import os
 import subprocess
@@ -326,3 +328,38 @@ def test_fixture_eval_tool_without_pil_cv2_or_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     row = [ln for ln in proc.stdout.splitlines() if ln.startswith("REPLAY ROW ")]
     assert len(row) == 1 and proc.stdout.splitlines()[-1] == "ok", proc.stdout[-3000:]
+
+
+DRAWN_SCENE = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from monogs_dev_tpu_torch.core.system import SLAM
+from monogs_dev_tpu_torch.data.synthetic import make_surface_scene
+from monogs_dev_tpu_torch.utils.config import load_config
+cfg = load_config("configs/synthetic/tiny_rgbd.yaml")
+cfg["Dataset"]["seed"] = 11  # no scene file is committed for it
+slam = SLAM(cfg, "cpu", seed=0)
+slam.run(max_frames=4)
+slam.stop()
+assert len(slam.frontend.cameras) == 4 and int(slam.engine.gmap.aux.active.sum()) > 0
+assert all(np.isfinite(c.T_est).all() for c in slam.frontend.cameras.values())
+params, active = make_surface_scene(500, generator=torch.Generator().manual_seed(3))
+assert bool(torch.isfinite(params.xyz).all()) and bool(active.all())
+bad = [m for m in sys.modules if m == "monogs_dev_tpu" or m.startswith("monogs_dev_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_synthetic_config_at_an_uncommitted_seed_without_jax():
+    """The port draws the scene itself where no npz of the JAX package's
+    scene exists, and runs a synthetic config on it with jax blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", DRAWN_SCENE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "drew the blobs scene with this package's generator" in " ".join(proc.stdout.split())
+    assert proc.stdout.splitlines()[-1] == "ok", proc.stdout
