@@ -45,6 +45,7 @@ from ..models.camera import Intrinsics
 from ..models.gaussians import GaussianMap, compact_map, create_map, insert_points_evict, resize_map
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
+from ..utils.profiling import span, sync
 from .insertion import new_points_from_frame
 from .keyframe import Keyframe
 from .mapping import (
@@ -264,13 +265,15 @@ class BackendEngine:
         target = self.tier_small
         if target >= rows:
             return
-        alive = int(self.gmap.aux.active.sum())
+        with sync("compact_map"):
+            alive = int(self.gmap.aux.active.sum())
         kf_insert = (self.intr.height * self.intr.width) // self.pcd_downsample
         densify_headroom = min(6144, self.capacity // 8)
         if alive + kf_insert + densify_headroom > target:
             return
         self.gmap, perm = compact_map(self.gmap, target)
-        perm_np = perm.cpu().numpy()
+        with sync("compact_map"):
+            perm_np = perm.cpu().numpy()
         for k, v in list(self.occ_aware_visibility.items()):
             vv = np.asarray(v)
             if vv.shape[0] < perm_np.shape[0]:
@@ -289,7 +292,8 @@ class BackendEngine:
         h, w = self.intr.height, self.intr.width
         budget = _next_pow2(max(int(2 * h * w / downsample), 256))
         if self.map_rows() < self.capacity:
-            free = int((~self.gmap.aux.active).sum())
+            with sync("insert"):
+                free = int((~self.gmap.aux.active).sum())
             if budget // 2 > free:
                 self._grow_to_capacity()
         new_params, valid = new_points_from_frame(
@@ -352,7 +356,8 @@ class BackendEngine:
         images, depths = self._stack_slots(slot_ids, b)
 
         def t(x):
-            return torch.as_tensor(x, device=self.device)
+            with sync("batch"):
+                return torch.as_tensor(x, device=self.device)
 
         batch = KeyframeBatch(
             images=images, depths=depths, T_w2c=t(T), exposure=t(exposure), valid=t(valid),
@@ -362,8 +367,10 @@ class BackendEngine:
         return batch, slot_ids
 
     def _writeback(self, batch: KeyframeBatch, slot_ids: List[int]) -> None:
-        T_np = batch.T_w2c.cpu().numpy()
-        exp_np = batch.exposure.cpu().numpy()
+        with sync("writeback"):
+            T_np = batch.T_w2c.cpu().numpy()
+        with sync("writeback"):
+            exp_np = batch.exposure.cpu().numpy()
         for s, kf_idx in enumerate(slot_ids):
             kf = self.viewpoints[kf_idx]
             kf.T_w2c = T_np[s]
@@ -382,10 +389,12 @@ class BackendEngine:
         kfs = [self.viewpoints[i] for i in rand]
         T = batch.T_w2c.clone()
         exposure = batch.exposure.clone()
-        T[n_win:n_win + 2] = torch.as_tensor(np.stack([kf.T_w2c for kf in kfs]).astype(np.float32),
-                                             device=self.device)
-        exposure[n_win:n_win + 2] = torch.as_tensor(
-            np.stack([kf.exposure for kf in kfs]).astype(np.float32), device=self.device)
+        with sync("batch"):
+            T[n_win:n_win + 2] = torch.as_tensor(
+                np.stack([kf.T_w2c for kf in kfs]).astype(np.float32), device=self.device)
+        with sync("batch"):
+            exposure[n_win:n_win + 2] = torch.as_tensor(
+                np.stack([kf.exposure for kf in kfs]).astype(np.float32), device=self.device)
         all_images = batch.images.clone()
         all_depths = batch.depths.clone()
         all_images[n_win:n_win + 2] = images
@@ -594,7 +603,9 @@ class BackendEngine:
         """Refresh occ-aware visibility from the round's final poses; host
         vectors are always capacity-padded."""
         vis = harvest_visibility(self.gmap, last_batch, self.bg_color, self.cfg, self.intr,
-                                 self.raster_cfg).cpu().numpy()
+                                 self.raster_cfg)
+        with sync("harvest"):
+            vis = vis.cpu().numpy()
         if vis.shape[1] < self.capacity:
             vis = np.pad(vis, ((0, 0), (0, self.capacity - vis.shape[1])))
         for s, kf_idx in enumerate(slot_ids):
@@ -618,16 +629,19 @@ class BackendEngine:
         sorted_window = sorted(self.current_window, reverse=True)
         third_newest = sorted_window[2] if len(sorted_window) > 2 else 0
         prev_active = self.gmap.aux.active
-        self.gmap = visibility_prune(
-            self.gmap, torch.as_tensor(vis, device=self.device),
-            torch.as_tensor(valid, device=self.device),
-            torch.as_tensor(kf_ids, device=self.device), third_newest, self.initialized,
-            self.prune_mode, self.cfg.monocular,
-        )
+        with sync("prune"):
+            vis_t = torch.as_tensor(vis, device=self.device)
+        with sync("prune"):
+            valid_t = torch.as_tensor(valid, device=self.device)
+        with sync("prune"):
+            kf_ids_t = torch.as_tensor(kf_ids, device=self.device)
+        self.gmap = visibility_prune(self.gmap, vis_t, valid_t, kf_ids_t, third_newest,
+                                     self.initialized, self.prune_mode, self.cfg.monocular)
         if self.cfg.monocular:
             # the keyframe policy reads these vectors: drop the pruned rows;
             # rows past the tier were never prunable and stay
-            kept = (self.gmap.aux.active | ~prev_active).cpu().numpy()
+            with sync("prune"):
+                kept = (self.gmap.aux.active | ~prev_active).cpu().numpy()
             kept = np.pad(kept, (0, self.capacity - kept.shape[0]), constant_values=True)
             for k in list(self.occ_aware_visibility):
                 self.occ_aware_visibility[k] = np.asarray(self.occ_aware_visibility[k]) & kept
@@ -643,7 +657,8 @@ class BackendEngine:
 
     def initialize_map(self, frame_idx: int) -> None:
         self.kf_state = None
-        self.map(iters=self.init_itr_num, init_mode=True, frames_to_optimize=0)
+        with span("round.init"):
+            self.map(iters=self.init_itr_num, init_mode=True, frames_to_optimize=0)
         Log("Initialized map")
 
     def handle_keyframe(self, frame_idx: int, kf: Keyframe, current_window: List[int],
@@ -661,7 +676,8 @@ class BackendEngine:
                 iter_per_kf = self.mapping_itr_num
         self.kf_state = None
         # map(iter_per_kf) followed by one more iteration with the prune
-        self.map(iters=iter_per_kf + 1, prune=True, frames_to_optimize=frames_to_optimize)
+        with span("round.keyframe"):
+            self.map(iters=iter_per_kf + 1, prune=True, frames_to_optimize=frames_to_optimize)
 
     def color_refinement(self) -> None:
         """Photometric-only refinement of the map over the keyframes, for
@@ -716,15 +732,16 @@ class _BackendProtocol:
         if self.stopped or self.pause or not e.current_window or self.single_thread:
             return
         self.handled["idle"] += 1
-        if self.last_sent + e.idle_iters >= 10:
-            e.map(iters=e.idle_iters + 10, prune=True)
-            self.push_to_frontend()
-        else:
-            # enqueue-only round: no harvest; the JAX package defers these
-            # rounds' host work further (`_standing`), which a launch on the
-            # card does not need
-            e.map(iters=e.idle_iters, harvest=False)
-            self.last_sent += e.idle_iters
+        with span("round.idle"):
+            if self.last_sent + e.idle_iters >= 10:
+                e.map(iters=e.idle_iters + 10, prune=True)
+                self.push_to_frontend()
+            else:
+                # enqueue-only round: no harvest; the JAX package defers these
+                # rounds' host work further (`_standing`), which a launch on
+                # the card does not need
+                e.map(iters=e.idle_iters, harvest=False)
+                self.last_sent += e.idle_iters
 
     def _handle(self, data) -> None:
         e = self.engine
@@ -902,14 +919,15 @@ class InlineBackendScheduler(_BackendProtocol):
         self.pump(idle_budget=0)
 
     def pump(self, idle_budget: int = 1) -> None:
-        while True:
-            try:
-                data = self.backend_queue.get_nowait()
-            except queue.Empty:
-                break
-            self._handle(data)
-        if idle_budget > 0:
-            self._pump_tick += 1
-            if self._pump_tick % max(self.engine.idle_every, 1) == 0:
-                for _ in range(idle_budget):
-                    self._idle_round()
+        with span("pump"):
+            while True:
+                try:
+                    data = self.backend_queue.get_nowait()
+                except queue.Empty:
+                    break
+                self._handle(data)
+            if idle_budget > 0:
+                self._pump_tick += 1
+                if self._pump_tick % max(self.engine.idle_every, 1) == 0:
+                    for _ in range(idle_budget):
+                        self._idle_round()

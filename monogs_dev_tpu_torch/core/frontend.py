@@ -31,6 +31,7 @@ import torch
 from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
+from ..utils.profiling import span, sync, tally
 from .backend import BackendEngine, adopt_on_stream, device_tensors, stream_event
 from .insertion import mono_bootstrap_depth, pseudo_depth_map
 from .keyframe import Keyframe
@@ -155,7 +156,6 @@ class FrontEnd:
         self.median_depth = 4.0
         self.anchor_idx = 0
         self.cur_frame_idx = 0
-        self.timers = None  # optional PhaseTimers injected by SLAM
         self.snapshot = (engine.gmap.params, engine.gmap.aux.active)
         # tracking runs on the smallest row prefix (cap/4, cap/2, cap) that
         # holds every active row; insertion fills the lowest free rows
@@ -166,7 +166,6 @@ class FrontEnd:
         self._snapshot_hw: Optional[int] = None
         self._zero_depth: Optional[torch.Tensor] = None  # monocular tracking depth
         self._prefetch: Dict[int, tuple] = {}
-        self._prefetch_s = 0.0  # the fetch inside the last tracking(), tallied apart
         self._run_end = 0  # frames past the current run's end are not prefetched
 
     # ----------------------------------------------------------------- comms
@@ -258,20 +257,18 @@ class FrontEnd:
         hit = self._prefetch.pop(idx, None)
         return hit if hit is not None else self._fetch_frame(idx)
 
-    def _fetch_frame(self, idx: int):
+    def _fetch_frame(self, idx: int, apart: bool = False):
         """One frame from the dataset, on the device. The real-data loaders
         decode into pinned host memory and copy without blocking, so the
-        host goes on at once."""
-        t0 = time.time()
-        image, depth, T_gt = self.dataset[idx]
-        self._tally("fetch_frame", t0)
+        host goes on at once. `apart`: a prefetch, whose time the enclosing
+        span (tracking) does not count."""
+        with span("fetch_frame", apart=apart):
+            image, depth, T_gt = self.dataset[idx]
         return image, depth, np.asarray(T_gt)
 
     def _prefetch_frame(self, idx: int) -> None:
-        t0 = time.time()
         if idx not in self._prefetch and idx < self._run_end:
-            self._prefetch = {idx: self._fetch_frame(idx)}
-        self._prefetch_s = time.time() - t0
+            self._prefetch = {idx: self._fetch_frame(idx, apart=True)}
 
     def _valid_rgb_depth(self, image, depth):
         return torch.where(image.sum(dim=-1) > self.cfg.rgb_boundary_threshold, depth,
@@ -306,8 +303,13 @@ class FrontEnd:
 
     def _tracking_tier(self, active) -> int:
         if self._snapshot_hw is None:
-            idx = torch.nonzero(active).flatten()
-            self._snapshot_hw = int(idx.max()) + 1 if idx.numel() else 0
+            with sync("tier"):
+                idx = torch.nonzero(active).flatten()
+            if idx.numel():
+                with sync("tier"):
+                    self._snapshot_hw = int(idx.max()) + 1
+            else:
+                self._snapshot_hw = 0
         for t in self.track_tiers:
             if t >= self._snapshot_hw:
                 return t
@@ -363,15 +365,18 @@ class FrontEnd:
         )
         # fetch the next frame before the result is read back to the host
         self._prefetch_frame(cur_frame_idx + 1)
-        touched = result.touched.cpu().numpy()
+        with sync("readback"):
+            touched = result.touched.cpu().numpy()
         cap = self.engine.capacity
         if touched.shape[0] < cap:
             touched = np.pad(touched, (0, cap - touched.shape[0]))
-        result = result._replace(
-            T_w2c=result.T_w2c.cpu().numpy(), exposure_ab=result.exposure_ab.cpu().numpy(),
-            touched=touched,
-        )
-        self.median_depth = float(result.median_depth)
+        with sync("readback"):
+            T_w2c = result.T_w2c.cpu().numpy()
+        with sync("readback"):
+            exposure_ab = result.exposure_ab.cpu().numpy()
+        result = result._replace(T_w2c=T_w2c, exposure_ab=exposure_ab, touched=touched)
+        with sync("readback"):
+            self.median_depth = float(result.median_depth)
         self._binned_hist.append(int(result.n_binned))
         del self._binned_hist[:-5]
         if result.compact_dropped > 0:
@@ -403,11 +408,6 @@ class FrontEnd:
             current_frame_T=np.asarray(track.T_w2c), gt_color=image.cpu().numpy(),
             keyframe_poses=[self.cameras[i].T_est for i in self.current_window]))
 
-    def _tally(self, name: str, t0: float) -> None:
-        if self.timers is not None:
-            self.timers.total[name] += time.time() - t0
-            self.timers.count[name] += 1
-
     # ------------------------------------------------------------------- run
 
     def run(self, max_frames: Optional[int] = None) -> None:
@@ -419,109 +419,106 @@ class FrontEnd:
         pump = getattr(self.backend_thread, "pump", None)
 
         while cur_frame_idx < n_frames:
-            self.cur_frame_idx = cur_frame_idx
-            tic = time.time()
-            if pump is not None:
-                t0 = time.time()
-                pump()
-                self._tally("pump", t0)
-            self._drain_frontend_queue()
-            if self.viz_channel is not None:
-                # the viewer's pause channel
-                ctrl = self.viz_channel.poll_control()
-                if ctrl is not None and ctrl.flag_pause != self.paused:
-                    self.paused = ctrl.flag_pause
-                    if self.backend_thread is not None:
-                        self.backend_thread.backend_queue.put(
-                            ["pause" if self.paused else "unpause"])
-                if self.paused:
-                    time.sleep(0.01)
-                    continue
-            if self.requested_init or (
-                    (self.single_thread or not self.initialized) and self.requested_keyframe > 0):
-                # wait for the backend: an init, or a keyframe while the
-                # frontend is single-threaded or not yet initialized; a
-                # backend thread gets the host while this one sleeps
+            with span("frame"):
+                self.cur_frame_idx = cur_frame_idx
+                tic = time.time()
                 if pump is not None:
-                    pump(idle_budget=0)
-                    self._drain_frontend_queue()
-                else:
-                    time.sleep(0.005)
-                continue
-
-            t0 = time.time()
-            image, depth, T_gt = self._load_frame(cur_frame_idx)
-            self._tally("load_frame", t0)
-            if self.reset:
-                self.initialize(cur_frame_idx, image, depth, T_gt)
-                cur_frame_idx += 1
-                continue
-
-            self.initialized = self.initialized or len(self.current_window) == self.window_size
-
-            t0 = time.time()
-            track = self.tracking(cur_frame_idx, image, depth)
-            # the next frame's fetch inside tracking() counts as fetch_frame only
-            self._tally("tracking", t0 + self._prefetch_s)
-            if self.timers is not None:
-                self.timers.tally("tracking_iters", int(track.n_iters))
-            self.cameras[cur_frame_idx] = FrameInfo(cur_frame_idx, track.T_w2c, T_gt,
-                                                    track.exposure_ab)
-            if self.viz_channel is not None:
-                self._publish(track, image)
-            if self.requested_keyframe > 0:
-                cur_frame_idx += 1
-                continue
-
-            last_keyframe_idx = self.current_window[0]
-            check_time = (cur_frame_idx - last_keyframe_idx) >= self.kf_interval
-            cur_vis = track.touched
-            last_vis = self.occ_aware_visibility.get(last_keyframe_idx, np.zeros_like(cur_vis))
-            create_kf = is_keyframe_check(
-                track.T_w2c, self.cameras[last_keyframe_idx].T_est, self.median_depth,
-                cur_vis, last_vis, self.kf_translation, self.kf_min_translation,
-                self.kf_overlap,
-            )
-            if len(self.current_window) < self.window_size:
-                union = max(np.count_nonzero(cur_vis | last_vis), 1)
-                intersection = np.count_nonzero(cur_vis & last_vis)
-                create_kf = check_time and (intersection / union) < self.kf_overlap
-            if self.single_thread:
-                create_kf = check_time and create_kf
-
-            if create_kf:
-                t0 = time.time()
-                poses = {i: self.cameras[i].T_est for i in self.current_window}
-                poses[cur_frame_idx] = track.T_w2c
-                self.current_window, removed = add_to_window(
-                    cur_frame_idx, cur_vis, self.occ_aware_visibility, self.current_window,
-                    poses, self.kf_cutoff, self.initialized, self.window_size,
-                )
-                if self.monocular and not self.initialized and removed is not None:
-                    self.reset = True
-                    Log(f"Keyframes lacks sufficient overlap to initialize the map, "
-                        f"resetting (evicted {removed}; |cur_vis|="
-                        f"{int(np.count_nonzero(cur_vis))})")
+                    pump()
+                self._drain_frontend_queue()
+                if self.viz_channel is not None:
+                    # the viewer's pause channel
+                    ctrl = self.viz_channel.poll_control()
+                    if ctrl is not None and ctrl.flag_pause != self.paused:
+                        self.paused = ctrl.flag_pause
+                        if self.backend_thread is not None:
+                            self.backend_thread.backend_queue.put(
+                                ["pause" if self.paused else "unpause"])
+                    if self.paused:
+                        time.sleep(0.01)
+                        continue
+                if self.requested_init or ((self.single_thread or not self.initialized)
+                                           and self.requested_keyframe > 0):
+                    # wait for the backend: an init, or a keyframe while the
+                    # frontend is single-threaded or not yet initialized; a
+                    # backend thread gets the host while this one sleeps
+                    if pump is not None:
+                        pump(idle_budget=0)
+                        self._drain_frontend_queue()
+                    else:
+                        time.sleep(0.005)
                     continue
-                if int(track.tile_overflow) > 0:
-                    Log(f"raster tile-list overflow: {int(track.tile_overflow)} entries "
-                        f"dropped (raise TPU.max_per_tile)", tag="MonoGS-TPU")
-                depth_map = self.make_keyframe_depth(image, depth, track)
-                kf = Keyframe(idx=cur_frame_idx, image=image,
-                              depth=depth if self.use_depth else None, T_w2c=track.T_w2c,
-                              exposure=track.exposure_ab, T_gt=T_gt)
-                self.cameras[cur_frame_idx].is_keyframe = True
-                self.kf_indices.append(cur_frame_idx)
-                Log(f"Keyframe {cur_frame_idx} (#{len(self.kf_indices)}), "
-                    f"window {self.current_window} (n_vis {int(np.count_nonzero(cur_vis))})")
-                self.requested_keyframe += 1
-                self._send(["keyframe", cur_frame_idx, kf, list(self.current_window),
-                            depth_map])
-                self._tally("keyframe", t0)
-            cur_frame_idx += 1
-            if create_kf and self.throttle:
-                # a live camera: keyframe frames at most 3 a second
-                time.sleep(max(0.01, 1.0 / 3.0 - (time.time() - tic)))
+
+                image, depth, T_gt = self._load_frame(cur_frame_idx)
+                if self.reset:
+                    self.initialize(cur_frame_idx, image, depth, T_gt)
+                    cur_frame_idx += 1
+                    continue
+
+                self.initialized = self.initialized or len(self.current_window) == self.window_size
+
+                # the next frame's fetch inside tracking() counts as fetch_frame only
+                with span("tracking"):
+                    track = self.tracking(cur_frame_idx, image, depth)
+                tally("tracking_iters", int(track.n_iters))
+                self.cameras[cur_frame_idx] = FrameInfo(cur_frame_idx, track.T_w2c, T_gt,
+                                                        track.exposure_ab)
+                if self.viz_channel is not None:
+                    self._publish(track, image)
+                if self.requested_keyframe > 0:
+                    cur_frame_idx += 1
+                    continue
+
+                last_keyframe_idx = self.current_window[0]
+                check_time = (cur_frame_idx - last_keyframe_idx) >= self.kf_interval
+                cur_vis = track.touched
+                last_vis = self.occ_aware_visibility.get(last_keyframe_idx, np.zeros_like(cur_vis))
+                create_kf = is_keyframe_check(
+                    track.T_w2c, self.cameras[last_keyframe_idx].T_est, self.median_depth,
+                    cur_vis, last_vis, self.kf_translation, self.kf_min_translation,
+                    self.kf_overlap,
+                )
+                if len(self.current_window) < self.window_size:
+                    union = max(np.count_nonzero(cur_vis | last_vis), 1)
+                    intersection = np.count_nonzero(cur_vis & last_vis)
+                    create_kf = check_time and (intersection / union) < self.kf_overlap
+                if self.single_thread:
+                    create_kf = check_time and create_kf
+
+                if create_kf:
+                    with span("keyframe"):
+                        poses = {i: self.cameras[i].T_est for i in self.current_window}
+                        poses[cur_frame_idx] = track.T_w2c
+                        self.current_window, removed = add_to_window(
+                            cur_frame_idx, cur_vis, self.occ_aware_visibility, self.current_window,
+                            poses, self.kf_cutoff, self.initialized, self.window_size,
+                        )
+                        if self.monocular and not self.initialized and removed is not None:
+                            self.reset = True
+                            Log(f"Keyframes lacks sufficient overlap to initialize the map, "
+                                f"resetting (evicted {removed}; |cur_vis|="
+                                f"{int(np.count_nonzero(cur_vis))})")
+                            continue
+                        with sync("overflow"):
+                            tile_overflow = int(track.tile_overflow)
+                        if tile_overflow > 0:
+                            Log(f"raster tile-list overflow: {tile_overflow} entries "
+                                f"dropped (raise TPU.max_per_tile)", tag="MonoGS-TPU")
+                        depth_map = self.make_keyframe_depth(image, depth, track)
+                        kf = Keyframe(idx=cur_frame_idx, image=image,
+                                      depth=depth if self.use_depth else None, T_w2c=track.T_w2c,
+                                      exposure=track.exposure_ab, T_gt=T_gt)
+                        self.cameras[cur_frame_idx].is_keyframe = True
+                        self.kf_indices.append(cur_frame_idx)
+                        Log(f"Keyframe {cur_frame_idx} (#{len(self.kf_indices)}), "
+                            f"window {self.current_window} "
+                            f"(n_vis {int(np.count_nonzero(cur_vis))})")
+                        self.requested_keyframe += 1
+                        self._send(["keyframe", cur_frame_idx, kf, list(self.current_window),
+                                    depth_map])
+                cur_frame_idx += 1
+                if create_kf and self.throttle:
+                    # a live camera: keyframe frames at most 3 a second
+                    time.sleep(max(0.01, 1.0 / 3.0 - (time.time() - tic)))
 
         self.cur_frame_idx = cur_frame_idx
         if self.backend_thread is not None:

@@ -23,18 +23,22 @@ from ..models.camera import Intrinsics
 from ..models.gaussians import GaussianParams
 from ..ops.knn import mean_sq_dist_knn3
 from ..utils.losses import _median
+from ..utils.profiling import spanned, sync
 
 
 def _normal(draws: Union[torch.Generator, torch.Tensor, np.ndarray], shape, device) -> torch.Tensor:
     """Standard normal draws of `shape`: drawn from a Generator, or given."""
     if isinstance(draws, torch.Generator):
-        return torch.randn(shape, generator=draws, device=draws.device).to(device)
-    out = torch.as_tensor(np.array(draws), dtype=torch.float32, device=device)
+        with sync("insert_draws"):
+            return torch.randn(shape, generator=draws, device=draws.device).to(device)
+    with sync("insert_draws"):
+        out = torch.as_tensor(np.array(draws), dtype=torch.float32, device=device)
     if tuple(out.shape) != tuple(shape):
         raise ValueError(f"draws of shape {tuple(out.shape)}, need {tuple(shape)}")
     return out
 
 
+@spanned("insert")
 def new_points_from_frame(draws: Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]],
                           image: torch.Tensor, depth_map: torch.Tensor,
                           exposure_ab, T_w2c, intr: Intrinsics, sh_degree: int,
@@ -47,13 +51,18 @@ def new_points_from_frame(draws: Union[torch.Generator, Tuple[torch.Tensor, torc
     Returns (params (budget, ...), valid (budget,))."""
     dev = image.device
     h, w = depth_map.shape
-    if isinstance(draws, torch.Generator):
-        u1 = torch.rand((h, w), generator=draws, device=draws.device).to(dev)
-        u2 = torch.rand((h, w), generator=draws, device=draws.device).to(dev)
-    else:
-        u1, u2 = (torch.as_tensor(np.array(d), dtype=torch.float32, device=dev) for d in draws)
-    exposure_ab = torch.as_tensor(exposure_ab, dtype=torch.float32, device=dev)
-    T_w2c = torch.as_tensor(T_w2c, dtype=torch.float32, device=dev)
+    u = []
+    for k in range(2):
+        with sync("insert_draws"):
+            if isinstance(draws, torch.Generator):
+                u.append(torch.rand((h, w), generator=draws, device=draws.device).to(dev))
+            else:
+                u.append(torch.as_tensor(np.array(draws[k]), dtype=torch.float32, device=dev))
+    u1, u2 = u
+    with sync("insert"):
+        exposure_ab = torch.as_tensor(exposure_ab, dtype=torch.float32, device=dev)
+    with sync("insert"):
+        T_w2c = torch.as_tensor(T_w2c, dtype=torch.float32, device=dev)
 
     image_ab = torch.clamp(torch.exp(exposure_ab[0]) * image + exposure_ab[1], 0.0, 1.0)
     valid = depth_map > 0.0
@@ -75,19 +84,24 @@ def new_points_from_frame(draws: Union[torch.Generator, Tuple[torch.Tensor, torc
     rgb = image_ab.reshape(-1, 3)[order]
 
     if adaptive_pointsize:
-        ps = min(0.05, point_size * float(_median(depth_map[valid])))
+        with sync("insert"):
+            valid_depth = depth_map[valid]
+        with sync("insert"):
+            ps = min(0.05, point_size * float(_median(valid_depth)))
     else:
         ps = point_size
     dist2 = torch.clamp(mean_sq_dist_knn3(p_world, sel_valid), min=1e-7) * ps
     log_scales = (0.5 * torch.log(dist2))[:, None].expand(budget, 3).contiguous()
 
     k = num_sh_coeffs(sh_degree)
+    with sync("insert"):
+        unit = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
     params = GaussianParams(
         xyz=p_world,
         f_dc=rgb_to_sh(rgb)[:, None, :],
         f_rest=torch.zeros((budget, max(k - 1, 0), 3), device=dev),
         log_scales=log_scales,
-        quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(budget, 1),
+        quats=unit.repeat(budget, 1),
         opacity_logit=torch.zeros((budget,), device=dev),
     )
     return params, sel_valid
@@ -107,14 +121,17 @@ def pseudo_depth_map(draws, render_depth: torch.Tensor, render_opacity: torch.Te
     dev = render_depth.device
     valid_rgb = gt_image.sum(dim=-1) > rgb_boundary_threshold
     valid = (render_depth > 0.0) & (render_opacity > 0.95) & valid_rgb
-    n = int(valid.sum())
+    with sync("pseudo_depth"):
+        n = int(valid.sum())
     if n:
-        median = _median(render_depth[valid])
+        with sync("pseudo_depth"):
+            median = _median(render_depth[valid])
         mean = torch.where(valid, render_depth, torch.zeros_like(render_depth)).sum() / n
         dev2 = torch.where(valid, render_depth - mean, torch.zeros_like(render_depth)) ** 2
         std = torch.sqrt(dev2.sum() / n)
     else:
-        median = torch.tensor(float(fallback_depth), device=dev)
+        with sync("pseudo_depth"):
+            median = torch.tensor(float(fallback_depth), device=dev)
         std = 0.05 * median
     invalid = (render_depth > median + std) | (render_depth < median - std) | ~valid
     depth = torch.where(invalid, median, render_depth)

@@ -34,6 +34,7 @@ from ..ops.project import project_gaussians
 from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import build_binning, render_binned, render_tiled
 from ..utils.losses import isotropic_regularizer, mapping_loss
+from ..utils.profiling import span, sync
 from .params import MapOptConfig, StepConfig
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -129,15 +130,19 @@ def mapping_iterations(gmap: GaussianMap, batch: KeyframeBatch, kf_state: Keyfra
     dev = batch.images.device
     b = batch.images.shape[0]
     n = gmap.params.xyz.shape[0]
-    valid = [bool(v) for v in batch.valid.tolist()]
-    app_exp = batch.apply_exposure.tolist()
+    with sync("map_setup"):
+        valid = [bool(v) for v in batch.valid.tolist()]
+    with sync("map_setup"):
+        app_exp = batch.apply_exposure.tolist()
     valid_t = batch.valid.to(dev)
-    pose_lr = torch.tensor([cfg.cam_trans_lr * cfg.pose_lr_scale] * 3
-                           + [cfg.cam_rot_lr * cfg.pose_lr_scale] * 3
-                           + [cfg.exposure_lr] * 2, device=dev)
+    with sync("map_setup"):
+        pose_lr = torch.tensor([cfg.cam_trans_lr * cfg.pose_lr_scale] * 3
+                               + [cfg.cam_rot_lr * cfg.pose_lr_scale] * 3
+                               + [cfg.exposure_lr] * 2, device=dev)
     pose_mask = (batch.optimize_pose & batch.valid)[:, None].to(dev)
     exp_mask = (batch.optimize_exposure & batch.valid)[:, None].to(dev)
-    ndc_scale = torch.tensor([intr.width * 0.5, intr.height * 0.5], device=dev)
+    with sync("map_setup"):
+        ndc_scale = torch.tensor([intr.width * 0.5, intr.height * 0.5], device=dev)
 
     T = batch.T_w2c
     exposure = batch.exposure
@@ -148,128 +153,141 @@ def mapping_iterations(gmap: GaussianMap, batch: KeyframeBatch, kf_state: Keyfra
     msi = int(cfg.map_slots_per_iter)
 
     for k_iter in range(int(iters)):
-        it += 1
-        draws.begin_iteration()
-        if 0 < msi < b and not init_mode:
-            # newest window slot always, plus a random (msi - 1) others;
-            # opacity-reset iterations render every slot
-            perm = draws.slot_perm(b - 1).to(dev) + 1
-            sub = torch.zeros((b,), dtype=torch.bool, device=dev)
-            sub[0] = True
-            sub[perm[: msi - 1]] = True
-            if it % reset_interval == 0:
-                sub[:] = True
-            live = [v and bool(s) for v, s in zip(valid, sub.tolist())]
-        else:
-            live = list(valid)
-
-        params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
-        active = gmap.aux.active
-        taus = torch.zeros((b, 6), device=dev, requires_grad=True)
-        exps = exposure.detach().clone().requires_grad_(True)
-        probes = torch.zeros((b, n, 2), device=dev, requires_grad=True)
-        radii = torch.zeros((b, n), device=dev)
-        total = isotropic_regularizer(params.log_scales, active)
-        for s in range(b):
-            if not live[s]:
-                continue
-            Ts = se3_exp(taus[s]) @ T[s]
-            proj = project_gaussians(params, active, Ts, intr, cfg.sh_degree)
-            out = render_binned(proj, proj.means2d + probes[s], bins[s].binning, intr,
-                                bg_color, raster_cfg, need_touched=False)
-            exp_eff = exps[s] if app_exp[s] else torch.zeros_like(exps[s])
-            total = total + mapping_loss(
-                out.color, out.depth, batch.images[s],
-                batch.depths[s] if use_depth else None, exp_eff, cfg.monocular,
-                initialization=False, alpha=cfg.alpha,
-                rgb_boundary_threshold=cfg.rgb_boundary_threshold,
-                render_opacity=out.alpha,
-            )
-            radii[s] = out.radii.detach()
-        leaves = params.values() + [taus, exps, probes]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-        g_map = GaussianParams(*grads[:6])
-        g_tau, g_exp, g_probe = grads[6:]
-        last_loss = total.detach()
-
-        with torch.no_grad():
-            xyz_lr = exponential_lr(
-                it,
-                opt_cfg.position_lr_init * opt_cfg.spatial_lr_scale,
-                opt_cfg.position_lr_final * opt_cfg.spatial_lr_scale,
-                lr_delay_mult=opt_cfg.position_lr_delay_mult,
-                max_steps=opt_cfg.position_lr_max_steps,
-            )
-            lrs = GaussianParams(xyz_lr, opt_cfg.feature_lr, opt_cfg.feature_lr / 20.0,
-                                 opt_cfg.scaling_lr, opt_cfg.rotation_lr, opt_cfg.opacity_lr)
-            new_params, moments = adam_step(gmap.params, g_map, gmap.moments, lrs, active)
-
-            # densification statistics; NDC-scaled means2d grads (the
-            # densify threshold is calibrated to that unit)
-            valid_f = valid_t[:, None] & (radii > 0.0)
-            vf = valid_f.to(torch.float32)
-            grad_norm = torch.linalg.norm(g_probe * ndc_scale, dim=-1)
-            aux = gmap.aux.replace(
-                grad_accum=gmap.aux.grad_accum + (grad_norm * vf).sum(0),
-                denom=gmap.aux.denom + vf.sum(0),
-                max_radii=torch.maximum(
-                    gmap.aux.max_radii,
-                    torch.where(valid_f, radii, torch.zeros_like(radii)).max(dim=0).values,
-                ),
-            )
-            gmap = GaussianMap(new_params, aux, moments)
-
-            # keyframe pose / exposure Adam + retraction
-            g_kf = torch.cat([g_tau, g_exp], dim=-1)
-            kcount = kf_state.count + 1
-            mu = _ADAM_B1 * kf_state.mu + (1 - _ADAM_B1) * g_kf
-            nu = _ADAM_B2 * kf_state.nu + (1 - _ADAM_B2) * g_kf * g_kf
-            c1 = 1.0 - _ADAM_B1 ** kcount
-            c2 = 1.0 - _ADAM_B2 ** kcount
-            step = pose_lr[None, :] * (mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS)
-            tau_step = torch.where(pose_mask, -step[:, :6], torch.zeros_like(step[:, :6]))
-            T = se3_exp(tau_step) @ T
-            exposure = exposure.detach() - torch.where(exp_mask, step[:, 6:],
-                                                       torch.zeros_like(step[:, 6:]))
-            kf_state = KeyframeOptState(mu, nu, kcount)
-
-            do_update = (it % update_every) == update_offset
-            if do_update:
-                gmap, dropped = densify_and_prune(
-                    gmap, draws.split_noise(min(cfg.densify_split_budget, n)).to(dev),
-                    max_grad=opt_cfg.densify_grad_threshold, min_opacity=gaussian_th,
-                    extent=gaussian_extent, max_screen_size=size_threshold,
-                    percent_dense=opt_cfg.percent_dense,
-                    clone_budget=cfg.densify_clone_budget,
-                    split_budget=cfg.densify_split_budget,
-                )
-                n_dropped += dropped
-            if init_mode:
-                do_reset = it == reset_interval
-                if do_reset:
-                    gmap = reset_opacity(gmap, 0.01)
+        with span("map.iter"):
+            it += 1
+            draws.begin_iteration()
+            if 0 < msi < b and not init_mode:
+                # newest window slot always, plus a random (msi - 1) others;
+                # opacity-reset iterations render every slot
+                with sync("slots"):
+                    perm = draws.slot_perm(b - 1).to(dev) + 1
+                sub = torch.zeros((b,), dtype=torch.bool, device=dev)
+                sub[0] = True
+                sub[perm[: msi - 1]] = True
+                if it % reset_interval == 0:
+                    sub[:] = True
+                with sync("slots"):
+                    live = [v and bool(s) for v, s in zip(valid, sub.tolist())]
             else:
-                do_reset = (it % reset_interval) == 0 and not do_update
-                if do_reset:
-                    gmap = reset_opacity_nonvisible(gmap, valid_f.any(dim=0), 0.4)
+                live = list(valid)
 
-            re_every = int(cfg.mapping_rebin_every)
-            if re_every > 0 and ((k_iter + 1) % re_every == 0 or do_update or do_reset):
-                bins = _build_binnings(gmap.params, gmap.aux.active, T, valid, cfg, intr,
-                                       raster_cfg)
+            params = gmap.params.map(lambda x: x.detach().requires_grad_(True))
+            active = gmap.aux.active
+            taus = torch.zeros((b, 6), device=dev, requires_grad=True)
+            exps = exposure.detach().clone().requires_grad_(True)
+            probes = torch.zeros((b, n, 2), device=dev, requires_grad=True)
+            radii = torch.zeros((b, n), device=dev)
+            total = isotropic_regularizer(params.log_scales, active)
+            for s in range(b):
+                if not live[s]:
+                    continue
+                Ts = se3_exp(taus[s]) @ T[s]
+                proj = project_gaussians(params, active, Ts, intr, cfg.sh_degree)
+                out = render_binned(proj, proj.means2d + probes[s], bins[s].binning, intr,
+                                    bg_color, raster_cfg, need_touched=False)
+                exp_eff = exps[s] if app_exp[s] else torch.zeros_like(exps[s])
+                total = total + mapping_loss(
+                    out.color, out.depth, batch.images[s],
+                    batch.depths[s] if use_depth else None, exp_eff, cfg.monocular,
+                    initialization=False, alpha=cfg.alpha,
+                    rgb_boundary_threshold=cfg.rgb_boundary_threshold,
+                    render_opacity=out.alpha,
+                )
+                radii[s] = out.radii.detach()
+            leaves = params.values() + [taus, exps, probes]
+            with span("map.backward"):
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+            g_map = GaussianParams(*grads[:6])
+            g_tau, g_exp, g_probe = grads[6:]
+            last_loss = total.detach()
+
+            with torch.no_grad():
+                with span("map.adam"):
+                    xyz_lr = exponential_lr(
+                        it,
+                        opt_cfg.position_lr_init * opt_cfg.spatial_lr_scale,
+                        opt_cfg.position_lr_final * opt_cfg.spatial_lr_scale,
+                        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+                        max_steps=opt_cfg.position_lr_max_steps,
+                    )
+                    lrs = GaussianParams(xyz_lr, opt_cfg.feature_lr, opt_cfg.feature_lr / 20.0,
+                                         opt_cfg.scaling_lr, opt_cfg.rotation_lr,
+                                         opt_cfg.opacity_lr)
+                    new_params, moments = adam_step(gmap.params, g_map, gmap.moments, lrs,
+                                                    active)
+
+                    # densification statistics; NDC-scaled means2d grads (the
+                    # densify threshold is calibrated to that unit)
+                    valid_f = valid_t[:, None] & (radii > 0.0)
+                    vf = valid_f.to(torch.float32)
+                    grad_norm = torch.linalg.norm(g_probe * ndc_scale, dim=-1)
+                    aux = gmap.aux.replace(
+                        grad_accum=gmap.aux.grad_accum + (grad_norm * vf).sum(0),
+                        denom=gmap.aux.denom + vf.sum(0),
+                        max_radii=torch.maximum(
+                            gmap.aux.max_radii,
+                            torch.where(valid_f, radii, torch.zeros_like(radii)).max(dim=0).values,
+                        ),
+                    )
+                    gmap = GaussianMap(new_params, aux, moments)
+
+                    # keyframe pose / exposure Adam + retraction
+                    g_kf = torch.cat([g_tau, g_exp], dim=-1)
+                    kcount = kf_state.count + 1
+                    mu = _ADAM_B1 * kf_state.mu + (1 - _ADAM_B1) * g_kf
+                    nu = _ADAM_B2 * kf_state.nu + (1 - _ADAM_B2) * g_kf * g_kf
+                    c1 = 1.0 - _ADAM_B1 ** kcount
+                    c2 = 1.0 - _ADAM_B2 ** kcount
+                    step = pose_lr[None, :] * (mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS)
+                    tau_step = torch.where(pose_mask, -step[:, :6], torch.zeros_like(step[:, :6]))
+                    T = se3_exp(tau_step) @ T
+                    exposure = exposure.detach() - torch.where(exp_mask, step[:, 6:],
+                                                               torch.zeros_like(step[:, 6:]))
+                    kf_state = KeyframeOptState(mu, nu, kcount)
+
+                do_update = (it % update_every) == update_offset
+                if do_update:
+                    with span("densify"):
+                        with sync("split_noise"):
+                            noise = draws.split_noise(min(cfg.densify_split_budget, n)).to(dev)
+                        gmap, dropped = densify_and_prune(
+                            gmap, noise, max_grad=opt_cfg.densify_grad_threshold,
+                            min_opacity=gaussian_th, extent=gaussian_extent,
+                            max_screen_size=size_threshold, percent_dense=opt_cfg.percent_dense,
+                            clone_budget=cfg.densify_clone_budget,
+                            split_budget=cfg.densify_split_budget,
+                        )
+                    n_dropped += dropped
+                if init_mode:
+                    do_reset = it == reset_interval
+                    if do_reset:
+                        gmap = reset_opacity(gmap, 0.01)
+                else:
+                    do_reset = (it % reset_interval) == 0 and not do_update
+                    if do_reset:
+                        gmap = reset_opacity_nonvisible(gmap, valid_f.any(dim=0), 0.4)
+
+                re_every = int(cfg.mapping_rebin_every)
+                if re_every > 0 and ((k_iter + 1) % re_every == 0 or do_update or do_reset):
+                    bins = _build_binnings(gmap.params, gmap.aux.active, T, valid, cfg, intr,
+                                           raster_cfg)
 
     max_drift, bulk_drift = _drift(gmap, T, bins, valid, cfg, intr, raster_cfg)
+    with sync("map_end"):
+        last_loss = float(last_loss)
+    with sync("map_end"):
+        n_free = int((~gmap.aux.active).sum())
     return MappingResult(
         gmap=gmap,
         batch=dataclasses.replace(batch, T_w2c=T, exposure=exposure),
         kf_state=kf_state,
         iteration_count=it,
-        last_loss=float(last_loss),
+        last_loss=last_loss,
         n_dropped=n_dropped,
         max_drift=max_drift,
         bulk_drift=bulk_drift,
-        n_free=int((~gmap.aux.active).sum()),
+        n_free=n_free,
     )
 
 
@@ -289,10 +307,15 @@ def _drift(gmap, T, bins, valid, cfg, intr, raster_cfg):
         onscreen = ((mu0[:, 0] > -margin) & (mu0[:, 0] < intr.width + margin)
                     & (mu0[:, 1] > -margin) & (mu0[:, 1] < intr.height + margin))
         m = bins[s].valid & proj.valid & onscreen
-        if bool(m.any()):
-            sel = d[m]
-            max_d = max(max_d, float(sel.max()))
-            bulk_d = max(bulk_d, float(torch.quantile(sel, 0.995)))
+        with sync("drift"):
+            any_m = bool(m.any())
+        if any_m:
+            with sync("drift"):
+                sel = d[m]
+            with sync("drift"):
+                max_d = max(max_d, float(sel.max()))
+            with sync("drift"):
+                bulk_d = max(bulk_d, float(torch.quantile(sel, 0.995)))
     return max_d, bulk_d
 
 
@@ -304,7 +327,11 @@ def harvest_visibility(gmap: GaussianMap, batch: KeyframeBatch, bg_color,
     n = gmap.params.xyz.shape[0]
     b = batch.T_w2c.shape[0]
     vis = torch.zeros((b, n), dtype=torch.bool, device=gmap.aux.active.device)
-    for s, (v, h) in enumerate(zip(batch.valid.tolist(), batch.harvest_visibility.tolist())):
+    with sync("harvest"):
+        valid = batch.valid.tolist()
+    with sync("harvest"):
+        harvest = batch.harvest_visibility.tolist()
+    for s, (v, h) in enumerate(zip(valid, harvest)):
         if v and h:
             out = render_tiled(gmap.params, gmap.aux.active, batch.T_w2c[s], intr,
                                cfg.sh_degree, bg_color, raster_cfg, need_touched=True)

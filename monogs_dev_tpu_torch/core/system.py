@@ -36,6 +36,7 @@ from ..eval.rendering import eval_rendering, save_gaussians
 from ..models.camera import Intrinsics
 from ..ops.raster_types import RasterConfig
 from ..utils.logging import Log
+from ..utils import profiling
 from ..utils.profiling import MetricsLogger, PhaseTimers
 from .backend import BackendEngine, BackendThread, InlineBackendScheduler
 from .frontend import FrontEnd
@@ -107,8 +108,9 @@ class SLAM:
                                  seed=seed + 1, throttle=self.live_mode,
                                  viz_channel=self.viz_channel)
         self.fps: float = 0.0
+        # the recorder that the port's spans write to (utils/profiling.py)
         self.timers = PhaseTimers()
-        self.frontend.timers = self.timers
+        profiling.activate(self.timers)
         self.metrics = MetricsLogger(
             save_dir, use_wandb=bool(config["Results"].get("use_wandb", False)),
             wandb_kwargs={"project": config["Dataset"].get("type", "monogs"), "config": config},
@@ -117,12 +119,14 @@ class SLAM:
     def run(self, max_frames: Optional[int] = None) -> None:
         """Run the frontend up to frame `max_frames`; a later call goes on
         from there (the backend thread is started once)."""
+        profiling.activate(self.timers)
         if self.backend_thread is not None and not self.backend_thread.is_alive():
             self.backend_thread.start()
         t0 = time.time()
         self.frontend.run(max_frames=max_frames)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.sync("run_end"):
+                torch.cuda.synchronize(self.device)
         t1 = time.time()
         n = len(self.dataset) if max_frames is None else min(max_frames, len(self.dataset))
         self.fps = n / max(t1 - t0, 1e-9)

@@ -26,6 +26,7 @@ from ..ops.project import project_gaussians
 from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import build_binning, compact_binning, render_binned, render_tiled, tile_wh
 from ..utils.losses import compute_grad_mask, median_depth, tracking_loss
+from ..utils.profiling import span, sync
 from .params import StepConfig
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # torch.optim.Adam defaults
@@ -131,7 +132,11 @@ def pose_gradient(T, exp_ab, params, active, binning, image, depth, mask, tile_m
     ab = exp_ab.detach().requires_grad_(True)
     loss = pose_loss(tau, ab, T, params, active, binning, image, depth, mask, tile_mask,
                      bg_color, cfg, intr, raster_cfg, use_depth)
-    return loss.detach(), torch.cat(torch.autograd.grad(loss, (tau, ab)))
+    # autograd runs the CUDA backward on its own device thread while this
+    # one waits, so the span covers it
+    with span("track.backward"):
+        g = torch.autograd.grad(loss, (tau, ab))
+    return loss.detach(), torch.cat(g)
 
 
 def track_frame(params, active, T_init, exposure_init, image, depth_gt, grad_mask,
@@ -142,13 +147,18 @@ def track_frame(params, active, T_init, exposure_init, image, depth_gt, grad_mas
     dev = image.device
     if grad_mask is None:
         grad_mask = compute_grad_mask(image, cfg.edge_threshold, cfg.per_block_mask)
-    lr = torch.tensor([cfg.cam_trans_lr] * 3 + [cfg.cam_rot_lr] * 3 + [cfg.exposure_lr] * 2,
-                      device=dev)
-    b1 = torch.tensor(_ADAM_B1, device=dev)
-    b2 = torch.tensor(_ADAM_B2, device=dev)
+    with sync("track_setup"):
+        lr = torch.tensor([cfg.cam_trans_lr] * 3 + [cfg.cam_rot_lr] * 3
+                          + [cfg.exposure_lr] * 2, device=dev)
+    with sync("track_setup"):
+        b1 = torch.tensor(_ADAM_B1, device=dev)
+    with sync("track_setup"):
+        b2 = torch.tensor(_ADAM_B2, device=dev)
     n = active.shape[0]
-    T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
-    exp_ab = torch.as_tensor(exposure_init, dtype=torch.float32, device=dev)
+    with sync("track_setup"):
+        T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
+    with sync("track_setup"):
+        exp_ab = torch.as_tensor(exposure_init, dtype=torch.float32, device=dev)
     compact_dropped = n_binned = total_iters = 0
     converged = False
 
@@ -164,12 +174,13 @@ def track_frame(params, active, T_init, exposure_init, image, depth_gt, grad_mas
         while itr < max_iters and not converged:
             # rebin at the current pose with a drift margin, then run up to
             # rebin_every iterations against the fixed binning
-            with torch.no_grad():
+            with torch.no_grad(), span("track.rebin"):
                 proj = project_gaussians(params, active, T, intr_l, cfg.sh_degree)
                 binning = build_binning(proj, intr_l, raster_cfg, dilate=cfg.rebin_dilation)
                 flat_slots = binning.idx_table.shape[0] * binning.idx_table.shape[1]
-                n_binned = max(n_binned,
-                               int((binning.pos_table < flat_slots).any(dim=1).sum()))
+                with sync("rebin"):
+                    n_binned = max(n_binned,
+                                   int((binning.pos_table < flat_slots).any(dim=1).sum()))
                 m = cfg.track_compact
                 if 0 < m < n:
                     # the iteration working set: the <= m Gaussians with tile
@@ -178,26 +189,31 @@ def track_frame(params, active, T_init, exposure_init, image, depth_gt, grad_mas
                     sel_c = torch.clamp(sel, 0, n - 1)
                     params_x = params.map(lambda x: x[sel_c])
                     active_x = active[sel_c] & (sel < n)
-                    compact_dropped = max(compact_dropped, int(dropped))
+                    with sync("rebin"):
+                        compact_dropped = max(compact_dropped, int(dropped))
                 else:
                     params_x, active_x = params, active
             start_itr = itr
             while itr < max_iters and not converged and itr < start_itr + cfg.rebin_every:
-                loss, g = pose_gradient(T, exp_ab, params_x, active_x, binning, img_l, dep_l,
-                                        msk_l, tile_mask, bg_color, cfg, intr_l, raster_cfg,
-                                        use_depth)
-                with torch.no_grad():
-                    itr += 1
-                    mu = _ADAM_B1 * mu + (1.0 - _ADAM_B1) * g
-                    nu = _ADAM_B2 * nu + (1.0 - _ADAM_B2) * g * g
-                    c1 = 1.0 - b1 ** itr
-                    c2 = 1.0 - b2 ** itr
-                    step = lr * (mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS)
-                    tau_new = -step[:6]
-                    exp_ab = exp_ab - step[6:]
-                    T = se3_exp(tau_new) @ T
-                    # the one host read of the iteration: the stop tests
-                    tau_norm, loss_v = torch.stack([torch.linalg.norm(tau_new), loss]).tolist()
+                with span("track.iter"):
+                    loss, g = pose_gradient(T, exp_ab, params_x, active_x, binning, img_l,
+                                            dep_l, msk_l, tile_mask, bg_color, cfg, intr_l,
+                                            raster_cfg, use_depth)
+                    with torch.no_grad():
+                        with span("track.adam"):
+                            itr += 1
+                            mu = _ADAM_B1 * mu + (1.0 - _ADAM_B1) * g
+                            nu = _ADAM_B2 * nu + (1.0 - _ADAM_B2) * g * g
+                            c1 = 1.0 - b1 ** itr
+                            c2 = 1.0 - b2 ** itr
+                            step = lr * (mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS)
+                            tau_new = -step[:6]
+                            exp_ab = exp_ab - step[6:]
+                            T = se3_exp(tau_new) @ T
+                        # the host read of the iteration: the stop tests
+                        with sync("stop"):
+                            tau_norm, loss_v = torch.stack(
+                                [torch.linalg.norm(tau_new), loss]).tolist()
                 converged = tau_norm < cfg.convergence_threshold
                 if cfg.plateau_iters > 0:
                     # loss-plateau exit (plateau_iters = 0 keeps the
@@ -207,7 +223,7 @@ def track_frame(params, active, T_init, exposure_init, image, depth_gt, grad_mas
                     converged = converged or stall >= cfg.plateau_iters
         total_iters += itr
 
-    with torch.no_grad():
+    with torch.no_grad(), span("track.final"):
         out = render_tiled(params, active, T, intr, cfg.sh_degree, bg_color, raster_cfg)
         med, _, _ = median_depth(out.depth, out.alpha)
     return TrackResult(

@@ -22,6 +22,7 @@ from ..ops.project import project_gaussians
 from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import build_binning, compact_binning, render_binned, render_tiled
 from ..utils.losses import compute_grad_mask, image_gradient, median_depth, tracking_loss
+from ..utils.profiling import span, sync
 from .params import StepConfig
 from .tracking import TrackResult, pyramid_levels, tile_mask_of
 
@@ -146,8 +147,10 @@ def track_frame_gn(params, active, T_init, exposure_init, image, depth_gt, grad_
     n = active.shape[0]
 
     raw_levels = pyramid_levels(image, depth_gt, grad_mask, intr, cfg)
-    T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
-    ab = torch.as_tensor(exposure_init, dtype=torch.float32, device=dev)
+    with sync("track_setup"):
+        T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
+    with sync("track_setup"):
+        ab = torch.as_tensor(exposure_init, dtype=torch.float32, device=dev)
     best_T, best_ab = T, ab
     compact_dropped = 0
     n_binned = 0
@@ -165,58 +168,68 @@ def track_frame_gn(params, active, T_init, exposure_init, image, depth_gt, grad_
             best_T, best_ab = T, ab
             stall = 0
             while itr < max_iters and not converged:
-                # outer: rebin (and optionally compact) at the current pose
-                proj = project_gaussians(params, active, T, intr_l, cfg.sh_degree)
-                binning = build_binning(proj, intr_l, raster_cfg, dilate=cfg.rebin_dilation)
-                flat_slots = binning.idx_table.shape[0] * binning.idx_table.shape[1]
-                n_binned = max(n_binned, int((binning.pos_table < flat_slots).any(dim=1).sum()))
-                m = cfg.track_compact
-                if 0 < m < n:
-                    sel, binning, dropped = compact_binning(binning, n, m)
-                    sel_c = torch.clamp(sel, 0, n - 1)
-                    params_x = params.map(lambda x: x[sel_c])
-                    active_x = active[sel_c] & (sel < n)
-                    compact_dropped = max(compact_dropped, int(dropped))
-                else:
-                    params_x, active_x = params, active
+                with span("track.rebin"):
+                    # outer: rebin (and optionally compact) at the current pose
+                    proj = project_gaussians(params, active, T, intr_l, cfg.sh_degree)
+                    binning = build_binning(proj, intr_l, raster_cfg, dilate=cfg.rebin_dilation)
+                    flat_slots = binning.idx_table.shape[0] * binning.idx_table.shape[1]
+                    with sync("rebin"):
+                        n_binned = max(n_binned,
+                                       int((binning.pos_table < flat_slots).any(dim=1).sum()))
+                    m = cfg.track_compact
+                    if 0 < m < n:
+                        sel, binning, dropped = compact_binning(binning, n, m)
+                        sel_c = torch.clamp(sel, 0, n - 1)
+                        params_x = params.map(lambda x: x[sel_c])
+                        active_x = active[sel_c] & (sel < n)
+                        with sync("rebin"):
+                            compact_dropped = max(compact_dropped, int(dropped))
+                    else:
+                        params_x, active_x = params, active
                 start_itr = itr
                 while itr < max_iters and not converged and itr < start_itr + cfg.rebin_every:
-                    proj = project_gaussians(params_x, active_x, T, intr_l, cfg.sh_degree)
-                    out = render_binned(proj, proj.means2d, binning, intr_l, bg_color,
-                                        raster_cfg, need_touched=False,
-                                        tile_mask=lv.tile_mask)
-                    loss = float(tracking_loss(
-                        out.color, out.depth, out.alpha, lv.image,
-                        lv.depth if use_depth else None, ab, lv.mask, cfg.monocular,
-                        cfg.alpha, cfg.rgb_boundary_threshold,
-                    ))
-                    worse = loss > best_loss * (1.0 + 1e-6)
-                    # revert-on-worse: back to the best state, more damping;
-                    # the normal equations still come from this render
-                    T_cur, ab_cur = (best_T, best_ab) if worse else (T, ab)
-                    lam = min(lam * 4.0, _LM_MAX) if worse else max(lam * 0.5, _LM_MIN)
-                    H, g = normal_equations(lv, out, ab_cur, cfg, use_depth, opt_exposure)
-                    D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
-                    step = torch.linalg.solve(H + lam * D + 1e-8 * eye8, -g)
-                    if not opt_exposure:
-                        step = torch.cat([step[:6], torch.zeros_like(step[6:])])
-                    tau = step[:6]
-                    T_new = se3_exp(tau) @ T_cur
-                    ab_new = ab_cur + step[6:]
-                    if loss <= best_loss:
-                        best_T, best_ab = T, ab
-                    improved = loss < best_loss * (1.0 - cfg.plateau_rel_tol)
-                    best_loss = min(best_loss, loss)
-                    converged = float(torch.linalg.norm(tau)) < cfg.convergence_threshold
-                    if cfg.plateau_iters > 0:
-                        stall = 0 if improved else stall + 1
-                        converged = converged or stall >= cfg.plateau_iters
-                    T, ab = T_new, ab_new
-                    itr += 1
+                    with span("track.iter"):
+                        proj = project_gaussians(params_x, active_x, T, intr_l, cfg.sh_degree)
+                        out = render_binned(proj, proj.means2d, binning, intr_l, bg_color,
+                                            raster_cfg, need_touched=False,
+                                            tile_mask=lv.tile_mask)
+                        loss = tracking_loss(
+                            out.color, out.depth, out.alpha, lv.image,
+                            lv.depth if use_depth else None, ab, lv.mask, cfg.monocular,
+                            cfg.alpha, cfg.rgb_boundary_threshold,
+                        )
+                        with sync("loss"):
+                            loss = float(loss)
+                        worse = loss > best_loss * (1.0 + 1e-6)
+                        # revert-on-worse: back to the best state, more damping;
+                        # the normal equations still come from this render
+                        T_cur, ab_cur = (best_T, best_ab) if worse else (T, ab)
+                        lam = min(lam * 4.0, _LM_MAX) if worse else max(lam * 0.5, _LM_MIN)
+                        H, g = normal_equations(lv, out, ab_cur, cfg, use_depth, opt_exposure)
+                        D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
+                        step = torch.linalg.solve(H + lam * D + 1e-8 * eye8, -g)
+                        if not opt_exposure:
+                            step = torch.cat([step[:6], torch.zeros_like(step[6:])])
+                        tau = step[:6]
+                        T_new = se3_exp(tau) @ T_cur
+                        ab_new = ab_cur + step[6:]
+                        if loss <= best_loss:
+                            best_T, best_ab = T, ab
+                        improved = loss < best_loss * (1.0 - cfg.plateau_rel_tol)
+                        best_loss = min(best_loss, loss)
+                        with sync("stop"):
+                            converged = float(torch.linalg.norm(tau)) < cfg.convergence_threshold
+                        if cfg.plateau_iters > 0:
+                            stall = 0 if improved else stall + 1
+                            converged = converged or stall >= cfg.plateau_iters
+                        T, ab = T_new, ab_new
+                        itr += 1
             total_iters += itr  # the next level starts from the last proposal
 
-        out = render_tiled(params, active, best_T, intr, cfg.sh_degree, bg_color, raster_cfg)
-        med, _, _ = median_depth(out.depth, out.alpha)
+        with span("track.final"):
+            out = render_tiled(params, active, best_T, intr, cfg.sh_degree, bg_color,
+                               raster_cfg)
+            med, _, _ = median_depth(out.depth, out.alpha)
     return TrackResult(
         T_w2c=best_T, exposure_ab=best_ab, n_iters=total_iters, converged=converged,
         color=out.color, depth=out.depth, opacity=out.alpha, touched=out.n_touched > 0,

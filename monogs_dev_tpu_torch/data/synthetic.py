@@ -25,6 +25,7 @@ from ..models.gaussians import GaussianParams, inverse_sigmoid
 from ..ops.raster_types import RasterConfig
 from ..ops.rasterize import render_tiled
 from ..utils.logging import Log
+from ..utils.profiling import sync
 from .datasets import load_dataset  # noqa: F401  (the factory's old home)
 
 SCENE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes")
@@ -226,11 +227,10 @@ class SyntheticDataset:
     @torch.no_grad()
     def render_frame(self, idx: int):
         if idx not in self._cache:
-            out = render_tiled(
-                self.scene_params, self.scene_active,
-                torch.as_tensor(self.poses[idx], dtype=torch.float32, device=self.device),
-                self.intr, 0, config=self._raster_cfg, need_touched=False,
-            )
+            with sync("fetch"):
+                pose = torch.as_tensor(self.poses[idx], dtype=torch.float32, device=self.device)
+            out = render_tiled(self.scene_params, self.scene_active, pose, self.intr, 0,
+                               config=self._raster_cfg, need_touched=False)
             color = torch.clamp(out.color, 0.0, 1.0)
             # normalized expected depth; 0 where nothing was hit
             depth = out.depth / torch.clamp(out.alpha, min=1e-6)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import sync
+
 _SMALL = 1e-8
 
 
@@ -63,7 +65,8 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     rot = so3_exp(theta)
     t = (so3_left_jacobian(theta) @ rho[..., None])[..., 0]
     top = torch.cat([rot, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device)
+    with sync("se3_exp"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device)
     bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

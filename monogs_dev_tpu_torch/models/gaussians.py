@@ -16,6 +16,7 @@ from typing import Tuple, Union
 import torch
 
 from ..geometry.sh import num_sh_coeffs
+from ..utils.profiling import sync
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -86,12 +87,14 @@ def create_map(capacity: int, sh_degree: int, device,
                dtype=torch.float32) -> GaussianMap:
     k = num_sh_coeffs(sh_degree)
     kw = dict(dtype=dtype, device=device)
+    with sync("create_map"):
+        unit = torch.tensor([[1.0, 0.0, 0.0, 0.0]], **kw)
     params = GaussianParams(
         xyz=torch.zeros((capacity, 3), **kw),
         f_dc=torch.zeros((capacity, 1, 3), **kw),
         f_rest=torch.zeros((capacity, max(k - 1, 0), 3), **kw),
         log_scales=torch.full((capacity, 3), -10.0, **kw),
-        quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]], **kw).repeat(capacity, 1),
+        quats=unit.repeat(capacity, 1),
         opacity_logit=torch.full((capacity,), -10.0, **kw),
     )
     ikw = dict(dtype=torch.int32, device=device)
@@ -224,10 +227,15 @@ def _scatter_rows(dst: torch.Tensor, target: torch.Tensor, src) -> torch.Tensor:
     """dst with rows `target` (< len(dst)) set from src; others dropped."""
     keep = target < dst.shape[0]
     out = dst.clone()
+    with sync("scatter"):
+        rows = target[keep]
     if isinstance(src, torch.Tensor) and src.dim() > 0:
-        out[target[keep]] = src[keep].to(dst.dtype)
+        with sync("scatter"):
+            src = src[keep]
+        out[rows] = src.to(dst.dtype)
     else:
-        out[target[keep]] = src
+        with sync("scatter"):  # the scalar goes to the device through the host
+            out[rows] = src
     return out
 
 
@@ -239,7 +247,8 @@ def insert_points(gmap: GaussianMap, new_params: GaussianParams, valid: torch.Te
     active = gmap.aux.active
     c = active.shape[0]
     free = ~active
-    slots = torch.nonzero(free).flatten()  # r-th free row, ascending
+    with sync("insert"):
+        slots = torch.nonzero(free).flatten()  # r-th free row, ascending
     n_free = slots.numel()
     rank = torch.cumsum(valid.to(torch.int64), 0) - 1
     ok = valid & (rank < n_free)
@@ -257,7 +266,8 @@ def insert_points(gmap: GaussianMap, new_params: GaussianParams, valid: torch.Te
         denom=_scatter_rows(gmap.aux.denom, target, 0.0),
         max_radii=_scatter_rows(gmap.aux.max_radii, target, 0.0),
     )
-    n_dropped = int((valid & ~ok).sum())
+    with sync("insert"):
+        n_dropped = int((valid & ~ok).sum())
     return GaussianMap(params, aux, AdamMoments(mu, nu, gmap.moments.count)), n_dropped
 
 
@@ -267,7 +277,11 @@ def insert_points_evict(gmap: GaussianMap, new_params: GaussianParams,
     the free rows cannot hold the batch. Returns (map, n_dropped, n_evicted)."""
     active = gmap.aux.active
     c = active.shape[0]
-    deficit = max(int(valid.sum()) - int((~active).sum()), 0)
+    with sync("insert"):
+        n_valid = int(valid.sum())
+    with sync("insert"):
+        n_free = int((~active).sum())
+    deficit = max(n_valid - n_free, 0)
     n_evicted = 0
     if deficit > 0:
         _, _, opacity = activations(gmap.params)
@@ -276,7 +290,8 @@ def insert_points_evict(gmap: GaussianMap, new_params: GaussianParams,
         evict = torch.zeros((c,), dtype=torch.bool, device=active.device)
         evict[order] = torch.arange(c, device=active.device) < deficit
         evict = evict & active
-        n_evicted = int(evict.sum())
+        with sync("insert"):
+            n_evicted = int(evict.sum())
         gmap = prune_mask_apply(gmap, evict)
     gmap, n_dropped = insert_points(gmap, new_params, valid, kf_id)
     return gmap, n_dropped, n_evicted
@@ -291,7 +306,8 @@ def prune_mask_apply(gmap: GaussianMap, prune: torch.Tensor) -> GaussianMap:
         return torch.where(_row_mask(dead, x), torch.zeros_like(x), x)
 
     p = gmap.params.map(clear)
-    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=p.quats.dtype, device=p.quats.device)
+    with sync("prune"):
+        unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=p.quats.dtype, device=p.quats.device)
     p = p.replace(
         opacity_logit=torch.where(dead, torch.full_like(p.opacity_logit, -10.0), p.opacity_logit),
         log_scales=torch.where(dead[:, None], torch.full_like(p.log_scales, -10.0), p.log_scales),

@@ -17,6 +17,7 @@ import torch
 from ..geometry.sh import eval_sh
 from ..models.camera import Intrinsics
 from ..models.gaussians import GaussianParams, activations
+from ..utils.profiling import spanned, sync
 
 
 class ProjectedGaussians(NamedTuple):
@@ -73,8 +74,9 @@ def sanitize_params(params: GaussianParams, active: torch.Tensor):
     row_ok = row_ok & (params.xyz.abs().max(dim=-1).values < 1e6)
     row_ok = row_ok & (torch.linalg.norm(params.quats, dim=-1) > 1e-3)
     ok1 = row_ok[:, None]
-    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=params.quats.dtype,
-                        device=params.quats.device)
+    with sync("sanitize"):
+        unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=params.quats.dtype,
+                            device=params.quats.device)
     zero = params.xyz.new_zeros(())
     params = params.replace(
         xyz=torch.where(ok1, params.xyz, zero),
@@ -88,6 +90,7 @@ def sanitize_params(params: GaussianParams, active: torch.Tensor):
     return params, active & row_ok
 
 
+@spanned("project")
 def project_gaussians(params: GaussianParams, active: torch.Tensor, T_w2c: torch.Tensor,
                       intr: Intrinsics, sh_degree: int, scale_modifier: float = 1.0,
                       isotropic: bool = False) -> ProjectedGaussians:

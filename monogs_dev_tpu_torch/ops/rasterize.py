@@ -26,6 +26,7 @@ from ..models.camera import Intrinsics
 from ..models.gaussians import GaussianParams
 from .blend import blend_tiles, blend_tiles_touch
 from .project import ProjectedGaussians, project_gaussians
+from ..utils.profiling import spanned, sync
 from .raster_types import RasterConfig, RenderOutput
 
 
@@ -49,6 +50,7 @@ def grid_dims(intr: Intrinsics, tile_w: int, tile_h: Optional[int] = None):
     return tx_n, ty_n, tx_n * ty_n
 
 
+@spanned("bin")
 @torch.no_grad()
 def build_binning(proj: ProjectedGaussians, intr: Intrinsics, config: RasterConfig,
                   dilate: float = 0.0) -> Binning:
@@ -157,6 +159,7 @@ def build_binning(proj: ProjectedGaussians, intr: Intrinsics, config: RasterConf
     return Binning(idx_table, pos_table, counts, dup_overflow, tile_overflow)
 
 
+@spanned("bin")
 @torch.no_grad()
 def compact_binning(binning: Binning, n: int, m: int):
     """Compact a binning to the <= m Gaussians that have tile entries and
@@ -167,7 +170,8 @@ def compact_binning(binning: Binning, n: int, m: int):
     k = binning.pos_table.shape[1]
     dev = binning.idx_table.device
     has_entry = (binning.pos_table < flat_slots).any(dim=1)
-    nz = torch.nonzero(has_entry).flatten()[:m]
+    with sync("compact"):
+        nz = torch.nonzero(has_entry).flatten()[:m]
     sel = torch.full((m,), n, dtype=torch.int64, device=dev)
     sel[: nz.numel()] = nz
     n_dropped = torch.clamp(has_entry.sum() - m, min=0)
@@ -205,6 +209,7 @@ def _tile_gather(props_pad, idx_table, pos_table):
     return _TileGather.apply(props_pad, idx_table, pos_table)
 
 
+@spanned("render")
 def render_binned(proj: ProjectedGaussians, means2d: torch.Tensor, binning: Binning,
                   intr: Intrinsics, bg_color: torch.Tensor, config: RasterConfig,
                   need_touched: bool, tile_mask: Optional[torch.Tensor] = None) -> RenderOutput:

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .profiling import spanned, sync
+
 
 def _filter2d_same(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Depthwise 2D cross-correlation with SAME zero padding; img (H, W, C)."""
@@ -63,8 +65,9 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
 
 def image_gradient(image: torch.Tensor):
     """Normalized 3x3 Scharr gradients of an (H, W, C) image -> (gx, gy)."""
-    kx = torch.tensor([[-3.0, 0.0, 3.0], [-10.0, 0.0, 10.0], [-3.0, 0.0, 3.0]],
-                      device=image.device) / 32.0
+    with sync("grad_mask"):
+        kx = torch.tensor([[-3.0, 0.0, 3.0], [-10.0, 0.0, 10.0], [-3.0, 0.0, 3.0]],
+                          device=image.device) / 32.0
     return _filter2d_same(image, kx), _filter2d_same(image, kx.T.contiguous())
 
 
@@ -117,6 +120,7 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (x * m).sum() / denom
 
 
+@spanned("loss")
 def tracking_loss(render_color, render_depth, render_opacity, gt_image,
                   gt_depth: Optional[torch.Tensor], exposure_ab, grad_mask,
                   monocular: bool, alpha: float = 0.95,
@@ -134,6 +138,7 @@ def tracking_loss(render_color, render_depth, render_opacity, gt_image,
     return alpha * rgb_term + (1.0 - alpha) * depth_term
 
 
+@spanned("loss")
 def mapping_loss(render_color, render_depth, gt_image, gt_depth, exposure_ab,
                  monocular: bool, initialization: bool = False, alpha: float = 0.95,
                  rgb_boundary_threshold: float = 0.01, render_opacity=None) -> torch.Tensor:
@@ -165,9 +170,11 @@ def median_depth(depth: torch.Tensor, opacity: torch.Tensor, mask=None):
     valid = (depth > 0.0) & (opacity > 0.95)
     if mask is not None:
         valid = valid & mask
-    vals = depth[valid]
+    with sync("median"):
+        vals = depth[valid]
     if vals.numel() == 0:
-        nan = torch.tensor(math.nan, device=depth.device)
+        with sync("median"):
+            nan = torch.tensor(math.nan, device=depth.device)
         return nan, nan, valid
     med = _median(vals)
     std = torch.sqrt(((vals - vals.mean()) ** 2).mean())

@@ -27,6 +27,7 @@ footprints of about a pixel, so that most warps miss most entries (the
 per-warp skips); `l128_edge` mixes in opacities under alpha_min,
 conics near singular and footprints wider than a tile."""
 
+import collections
 import functools
 import os
 
@@ -739,3 +740,132 @@ def test_kernel_library_runs_on_torchs_cuda_runtime(cuda):
     in the process and the library's runtime calls resolve to it."""
     runtimes = B.cuda_runtimes()
     assert runtimes["one_runtime"] and len(runtimes["libcudart"]) == 1, runtimes
+
+
+def _tiny_inline_slam(dev):
+    """tiny_rgbd.yaml with the inline backend pump, as the benchmark's cell
+    runs the backend."""
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "configs/synthetic/tiny_rgbd.yaml"))
+    cfg["Training"]["single_thread"] = False
+    cfg["Dataset"]["single_thread"] = False
+    cfg["Results"]["save_results"] = False
+    return SLAM(cfg, dev, seed=0)
+
+
+def _sync_warnings(slam, fn, monkeypatch):
+    """Run fn under torch's sync debug mode set to warn. Returns the sync
+    warnings that fn raised, each with the innermost open span of the
+    recorder then; the explicit `torch.cuda.synchronize` calls, which the
+    mode does not report; the `syncs` tally's delta; and the count of each
+    `sync.*` span."""
+    import traceback
+    import warnings
+
+    from monogs_dev_tpu_torch.utils import profiling
+
+    seen = []
+    stack = slam.timers._stack
+    inside = [False]
+    explicit = [0]
+    synchronize = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        explicit[0] += inside[0]
+        return synchronize(*args, **kwargs)
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if inside[0] and "synchronizing" in str(message):
+            top = stack()[-1].name if stack() else None
+            site = f"{filename}:{lineno}"
+            if not (top or "").startswith("sync."):  # where it came from
+                site += "\n" + "".join(traceback.format_stack()[-10:-2])
+            seen.append((top, site))
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    before = slam.timers.tallies["syncs"]
+    counts = dict(slam.timers.count)
+    synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            assert profiling.active() is slam.timers
+            inside[0] = True
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    by_site = {k: v - counts.get(k, 0) for k, v in slam.timers.count.items()
+               if k.startswith("sync.") and v > counts.get(k, 0)}
+    return seen, explicit[0], slam.timers.tallies["syncs"] - before, by_site
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", ["one_frame", "to_a_keyframe"])
+def test_syncs_tally_equals_torchs_sync_debug_count(cuda, window, monkeypatch):
+    """Every call on the per-frame path that torch's sync debug mode reports
+    as synchronizing is a `sync.<site>` span of the port, and no span counts
+    a sync that torch does not report, but for `SLAM.run`'s closing
+    `torch.cuda.synchronize` (`sync.run_end`): the mode does not report an
+    explicit device-wide synchronize, so those calls are counted apart.
+    one_frame: a tracked frame and the pump's idle mapping round;
+    to_a_keyframe: frames 2-13, one call each, with the keyframes' insertion
+    and mapping rounds (visibility harvest and prune)."""
+    slam = _tiny_inline_slam(cuda)
+    slam.run(max_frames=2)
+    kf0 = slam.backend_thread.handled["keyframe"]
+    last = 3 if window == "one_frame" else 14
+
+    def frames():
+        for i in range(3, last + 1):
+            slam.run(max_frames=i)
+
+    seen, explicit, tallied, by_site = _sync_warnings(slam, frames, monkeypatch)
+    uncovered = collections.Counter(site for top, site in seen
+                                    if not (top or "").startswith("sync."))
+    assert not uncovered, dict(uncovered)
+    warned = collections.Counter(top for top, _ in seen)
+    warned["sync.run_end"] += explicit
+    differ = {k: (by_site.get(k, 0), warned.get(k, 0)) for k in set(by_site) | set(warned)
+              if by_site.get(k, 0) != warned.get(k, 0)}
+    assert not differ, differ
+    assert explicit == last - 2 and tallied == len(seen) + explicit
+    if window == "to_a_keyframe":
+        assert slam.backend_thread.handled["keyframe"] > kf0
+
+
+@pytest.mark.gpu
+def test_span_records_bracket_their_kernels_on_the_traces_clock(cuda):
+    """`benchmark.trace.Tracer` (torch's profiler with CUDA activity only)
+    traces a span around a matmul and a sync: the span is kept as a record
+    under that profiler, and the matmul's device interval, on the trace's
+    clock as Tracer reads it, lies inside the span's."""
+    from benchmark.trace import Tracer
+    from monogs_dev_tpu_torch.utils import profiling
+
+    timers, before = profiling.PhaseTimers(), profiling.active()
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    tracer = Tracer(cuda)
+    profiling.activate(timers)
+    try:
+        tracer.start()
+        with profiling.span("matmul"):
+            y = x @ x
+            with profiling.sync("done"):
+                torch.cuda.synchronize()
+        tracer.stop()
+    finally:
+        profiling.activate(before)
+    (name, start_ns, end_ns, _, _), = [r for r in timers.records if r[0] == "matmul"]
+    assert [r[0] for r in timers.records] == ["sync.done", "matmul"]
+    names, ids, st, en = tracer._device_events()
+    assert len(st) >= 1, names  # the matmul's kernel(s), nothing else runs
+    assert start_ns * 1e-9 <= float(st.min()) and float(en.max()) <= end_ns * 1e-9, (
+        start_ns, end_ns, st, en, names)
+    assert float(y[0, 0]) == pytest.approx(float(x[0] @ x[:, 0]), rel=1e-4)
