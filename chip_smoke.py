@@ -29,7 +29,10 @@
    launch counts and the ATE (the Adam loop on to a keyframe runs in the
    ingest phase, on fr3_office's config); PARITY_PROFILE_FRAMES profiled
    frames; the first iteration's loss and gradient at one frame of the run,
-   kernels against the plain blend (`gradient_check`); then
+   kernels against the plain blend (`gradient_check`); on the same frame
+   the projection's kernels P1/P2 against their plain versions, timed, and
+   the tracker's frame run again through them alone (`projection_check`,
+   the `projection:` line); then
    `SLAM.evaluate` (colour refinement, PSNR/SSIM/LPIPS before and after,
    the ATE, PSNR-json and PLY artifacts in a temporary directory);
 6. lab: the kernel lab's entry point (`monogs_dev_tpu_torch/tools/
@@ -176,7 +179,12 @@ REPLACES = {
 PROFILE_FRAMES = 2
 # profiler kernel names of K1-K3
 PROFILE_NAMES = {"K1": "blend_fwd_kernel_v2<false>", "K3": "blend_fwd_kernel_v2<true>",
-                 "K2": "blend_bwd_kernel_v2"}
+                 "K2": "blend_bwd_kernel_v2", "P1": "project_fwd_kernel",
+                 "P2": "project_bwd_pose"}
+# the projection's kernels against their plain versions (ops/project.py):
+# P1's continuous fields within PROJ_REL relative (radii and valid equal),
+# P2's pose gradient within POSE_GRAD_REL x its largest entry
+PROJ_REL, POSE_GRAD_REL = 2e-6, 1e-5
 # parity phase: frames 0..11 (until the ingest phase's fr3_office run took
 # the Adam loop on to a keyframe, the run went on to frame 45); the Adam
 # tracker's first iteration at PARITY_GRAD_FRAME is checked kernels against
@@ -829,6 +837,88 @@ def gradient_check(inputs):
     return out
 
 
+def projection_check(inputs):
+    """The projection's kernels on the Adam tracker's frame of the parity
+    run (its map and start pose): P1 against the eager composition, P2
+    against `project_pose_vjp_plain` on seeded upstream gradients; P1 and
+    P2 timed kernel-only (`kernel_ms`), through the wrapper and as their
+    plain versions, beside their bound (the bytes they must move over
+    3.35 TB/s); then the tracker's frame again: P1 and P2 launched, and no
+    projection took the eager path."""
+    import torch
+
+    from monogs_dev_tpu_torch.core import tracking as tt
+    from monogs_dev_tpu_torch.ops import blend as B
+    from monogs_dev_tpu_torch.ops import project as P
+    from monogs_dev_tpu_torch.ops.blend_timing import HBM_BPS, kernel_ms
+    from monogs_dev_tpu_torch.utils import profiling
+
+    args, kw = inputs
+    params, active, T_init, intr = args[0], args[1], args[2], args[9]
+    dev = params.xyz.device
+    T = torch.as_tensor(T_init, dtype=torch.float32, device=dev)
+    n = params.xyz.shape[0]
+    with torch.no_grad():
+        out = P.project_gaussians_cuda(params, active, T, intr)
+        ref = P.project_gaussians_eager(params, active, T, intr, 0)
+    if not (torch.equal(out.radii, ref.radii) and torch.equal(out.valid, ref.valid)):
+        fail("projection: P1's radii or valid differ from the eager composition's")
+    rel = {f: float(((getattr(out, f) - getattr(ref, f)).abs()
+                     / getattr(ref, f).abs().clamp(min=1e-30)).max())
+           for f in ("means2d", "conic", "color", "opacity", "depth")}
+    if not all(v <= PROJ_REL for v in rel.values()):
+        fail(f"projection: P1 against the eager composition, relative {rel} > {PROJ_REL}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = (torch.randn((n, 2), generator=gen, device=dev),
+         1e-3 * torch.randn((n, 3), generator=gen, device=dev),
+         torch.randn((n,), generator=gen, device=dev))
+    fields = (T, params.xyz, params.log_scales, params.quats, params.opacity_logit, params.f_dc,
+              params.f_rest)
+    fwd, _ = P.project_fwd_launcher(*fields, active, intr)
+    bwd, dT = P.project_bwd_launcher(*fields, *g, intr)
+    bwd()
+    plain = P.project_pose_vjp_plain(params, T, intr, *g)
+    g_err = float((dT - plain).abs().max()) / float(plain.abs().max())
+    if not g_err <= POSE_GRAD_REL:
+        fail(f"projection: P2 against the plain version, {g_err} > {POSE_GRAD_REL}")
+    ms = kernel_ms({"P1": fwd, "P2": bwd})
+    with torch.no_grad():
+        wrapper_ms = cuda_ms(lambda: P.project_gaussians(params, active, T, intr, 0))
+        plain_ms = cuda_ms(lambda: P.project_gaussians_eager(params, active, T, intr, 0))
+        plain_vjp_ms = cuda_ms(lambda: P.project_pose_vjp_plain(params, T, intr, *g))
+    rest = 4 * params.f_rest[0].numel()
+    row_in = 12 + 12 + 16 + 4 + 12 + rest  # xyz, log-scales, quaternion, opacity, f_dc, f_rest
+    blocks = -(-n // P.THREADS)
+    bytes_p1 = n * (row_in + 1 + 8 + 12 + 12 + 4 + 4 + 4 + 1) + 64
+    bytes_p2 = n * (row_in + 8 + 12 + 4) + 2 * 96 * blocks + 64 + 64
+    rows = {}
+    for name, nbytes, plain_t in (("P1", bytes_p1, plain_ms), ("P2", bytes_p2, plain_vjp_ms)):
+        bound_ms = 1e3 * nbytes / HBM_BPS
+        rows[name] = {"ms": ms[name], "bound_ms": bound_ms, "bound_by": "bytes",
+                      "gap": ms[name] / bound_ms, "plain_ms": plain_t}
+    rows["P1"]["wrapper_ms"] = wrapper_ms
+
+    timers, before = profiling.PhaseTimers(), profiling.active()
+    profiling.activate(timers)
+    launches = dict(B.LAUNCHES)
+    try:
+        res = tt.track_frame(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        profiling.activate(before)
+    launched = {k: B.LAUNCHES[k] - launches[k] for k in ("P1", "P2", "K1", "K2")}
+    paths = {k: timers.tallies[k] for k in ("project.kernel", "project.eager")}
+    info = {"rows": n, "active": int(active.sum()), "valid": int(ref.valid.sum()),
+            "p1_rel_err": rel, "p2_rel_err": g_err, "kernels": rows,
+            "track_frame": {"iters": res.n_iters, "launches": launched, "paths": paths}}
+    print("projection: " + json.dumps(info), flush=True)
+    if paths["project.eager"] or not paths["project.kernel"]:
+        fail(f"projection: the Adam tracker's frame took the eager projection: {paths}")
+    if launched["P2"] != res.n_iters or launched["P1"] < res.n_iters:
+        fail(f"projection: P1/P2 launches {launched} for {res.n_iters} Adam iterations")
+    return info
+
+
 def parity_phase(dev):
     """`configs/synthetic/bench_vga_parity.yaml` (RGB-D, the reference's
     Adam tracking loop) through `SLAM`, the code path of `slam_torch.py
@@ -867,7 +957,7 @@ def parity_phase(dev):
         torch.cuda.synchronize()
         t2 = time.time()
         n = N_FRAMES
-        launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        launches = {k: B.LAUNCHES[k] for k in ("K1", "K2", "K3", "P1", "P2")}
         frame_ms = 1e3 * (t2 - t1) / (N_FRAMES - 2)
         profile = profile_frames("parity", slam, n, PARITY_PROFILE_FRAMES, frame_ms)
         profile_s = time.time() - t2
@@ -907,6 +997,7 @@ def parity_phase(dev):
             fail(f"kernel {name} was not launched in the parity run")
 
     info["gradient_check"] = gradient_check(recorder.inputs)
+    info["projection"] = projection_check(recorder.inputs)
 
     B.reset_launch_counts()
     t4 = time.time()
@@ -2262,6 +2353,19 @@ def main() -> int:
             "sets": {label: set_times(res[name]) for label, res in lsets.items()},
         }
         for name, n in lab_launches.items()
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "monogs_dev_tpu_torch/csrc/project.cu",
+            "replaces": None,  # XLA's fusion of the JAX package's jnp projection
+            "launches": parity["launches"][name],
+            "max_rel_err": (max(parity["projection"]["p1_rel_err"].values()) if name == "P1"
+                            else parity["projection"]["p2_rel_err"]),
+            **parity["projection"]["kernels"][name],
+            "library_ms": None,
+        }
+        for name in ("P1", "P2")
     ]
     # K1-K3: launches in the parity run (phase 5; every path's under
     # launches_by_path: `thread` counts every thread's launches in the
@@ -2271,7 +2375,9 @@ def main() -> int:
     # bound_ms on the bench scene's frame-0 props (phase 3), and the same for
     # every prop set under "sets". L1/L2: launches in the lab's run, the same
     # numbers on the lab scene's props, and on every prop set under "sets".
-    # max_abs_err over all sets.
+    # max_abs_err over all sets. P1/P2: launches in the parity run, their
+    # errors against the plain versions, ms, wrapper_ms (P1), plain_ms and
+    # bound_ms on the parity run's map (`projection_check`).
     for label, (kres, lres) in sets.items():
         print(f"{label}: kernel-only speed-up over the first version: "
               + ", ".join(f"{k} {r['ms_v1'] / r['ms']:.2f}x"

@@ -12,7 +12,8 @@ together with the first version of the same kernels (`csrc/blend_v1.cu`,
 kept as a yardstick: `forward_launcher`/`backward_launcher` with
 `version=1`, which count no launch; nothing of the system calls them) and
 the kernel lab's `csrc/blend_lab.cu` and its first version
-`csrc/blend_lab_v1.cu` (ops/blend_lab.py), into one library called through
+`csrc/blend_lab_v1.cu` (ops/blend_lab.py), and the projection's
+`csrc/project.cu` (ops/project.py), into one library called through
 `ctypes`. `blend_tiles` / `blend_tiles_touch` dispatch on
 the device of `props`: a CUDA tensor goes to the kernels (a build or launch
 failure raises), a CPU tensor goes to `blend_tiles_reference`, the plain
@@ -53,15 +54,17 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
     "blend_v1.cu": ["-fmad=false"],
     "blend_lab.cu": [],
     "blend_lab_v1.cu": ["-fmad=false"],
+    "project.cu": [],
 }
 SOURCES = [os.path.join(_PKG, "csrc", name) for name in SOURCE_FLAGS]
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-# (L1 and L2 are the kernel lab's, ops/blend_lab.py), through `count_launch`,
+# (L1 and L2 are the kernel lab's, ops/blend_lab.py; P1 and P2 the
+# projection's, ops/project.py, P2 one for its two passes), through `count_launch`,
 # which also tallies them by the launching thread's name: the frontend, the
 # backend thread and a viewer launch from threads of their own (the blend's
 # backward runs on autograd's device thread)
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "L1": 0, "L2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "L1": 0, "L2": 0, "P1": 0, "P2": 0}
 THREAD_LAUNCHES: Dict[str, Dict[str, int]] = {}
 _count_lock = threading.Lock()
 
@@ -187,6 +190,17 @@ def _load():
                     _c_void_p,
                 ]
                 getattr(lib, bwd).restype = _c_int
+            # the projection's P1 and P2 (ops/project.py): pose, map fields,
+            # rest floats a row, (active,) rows, camera (7 floats, the scale
+            # modifier, isotropic), threads, then outputs (or upstream
+            # gradients and scratch) and the stream
+            cam = [_c_float] * 8 + [_c_int, _c_int]
+            lib.project_fwd.argtypes = ([_c_void_p] * 7 + [_c_int, _c_void_p, _c_int] + cam
+                                        + [_c_void_p] * 8)
+            lib.project_fwd.restype = _c_int
+            lib.project_bwd_pose.argtypes = ([_c_void_p] * 7 + [_c_int, _c_int] + cam
+                                             + [_c_void_p] * 6)
+            lib.project_bwd_pose.restype = _c_int
             _lib = lib
     return _lib
 

@@ -200,13 +200,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_each_source_builds_with_its_own_flags():
     """Version 2 (blend.cu, blend_lab.cu) contracts multiply-adds: it rounds
-    power, alpha and the transmittance by hand. The first versions
+    power, alpha and the transmittance by hand; so does the projection
+    (project.cu), which rounds its forward's row by hand. The first versions
     (blend_v1.cu, blend_lab_v1.cu) keep -fmad=false. Every source gets one
     `nvcc -c` into its own object, and the library's name hashes the flags."""
     cmds = B.compile_commands("nvcc", "/build", verbose=True)
     by_src = {cmd[-1].rsplit("/", 1)[-1]: cmd for cmd in cmds}
-    assert set(by_src) == {"blend.cu", "blend_v1.cu", "blend_lab.cu", "blend_lab_v1.cu"}
-    for name in ("blend.cu", "blend_lab.cu"):
+    assert set(by_src) == {"blend.cu", "blend_v1.cu", "blend_lab.cu", "blend_lab_v1.cu",
+                           "project.cu"}
+    for name in ("blend.cu", "blend_lab.cu", "project.cu"):
         assert "-fmad=false" not in by_src[name]
     for name in ("blend_v1.cu", "blend_lab_v1.cu"):
         assert "-fmad=false" in by_src[name]

@@ -869,3 +869,281 @@ def test_span_records_bracket_their_kernels_on_the_traces_clock(cuda):
     assert start_ns * 1e-9 <= float(st.min()) and float(en.max()) <= end_ns * 1e-9, (
         start_ns, end_ns, st, en, names)
     assert float(y[0, 0]) == pytest.approx(float(x[0] @ x[:, 0]), rel=1e-4)
+
+
+# The projection's kernels (csrc/project.cu: P1 forward, P2 pose gradient)
+# against the eager composition and the plain pose gradient, on three maps:
+# the bench_vga map after its initial mapping, a 131,072-row scale map, and
+# a map of edge rows, the last also isotropic at half scale (the viewer's
+# scale modifier).
+
+def _edge_map(dev, seed=5):
+    """2,048 rows: a random map, with rows behind the camera and at znear,
+    far outside the tan-FoV clamp, very elongated (det rounds to <= 0 in
+    float32), NaN/Inf/huge/degenerate (quarantined) and inactive."""
+    rng = np.random.default_rng(seed)
+    n = 2048
+    q = rng.normal(size=(n, 4)) * rng.uniform(0.5, 2.0, (n, 1))
+    a = dict(xyz=np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                           rng.uniform(1, 6, n)], -1),
+             f_dc=rng.uniform(-1.5, 1.5, (n, 1, 3)), f_rest=np.zeros((n, 0, 3)),
+             log_scales=np.log(rng.uniform(0.005, 0.2, (n, 3))), quats=q,
+             opacity_logit=rng.uniform(-3, 4, n))
+    a["xyz"][0:64] = [0.3, -0.2, -1.0]
+    a["xyz"][64:96] = [0.1, 0.1, 0.01]
+    a["xyz"][96:160, 0] = rng.uniform(8, 20, 64)
+    a["log_scales"][160:416] = [8.0, -20.0, -20.0]
+    a["xyz"][416:424] = np.nan
+    a["log_scales"][424:432] = np.inf
+    a["quats"][432:440] = [1e-4, 0.0, 0.0, 0.0]
+    a["xyz"][440:448] = [2e6, 0.0, 3.0]
+    a["opacity_logit"][448:456] = -np.inf
+    a["f_dc"][456:464] = np.nan
+    active = np.ones(n, bool)
+    active[::7] = False
+    params = GaussianParams(**{k: torch.tensor(v, dtype=torch.float32, device=dev)
+                               for k, v in a.items()})
+    return params, torch.tensor(active, device=dev), Intrinsics(300.0, 300.0, 160.0, 120.0, 320, 240)
+
+
+def _scale_map(dev, n=131072):
+    """scale_vga's relief at 131,072 rows, each turned and stretched at
+    random, every row active."""
+    from monogs_dev_tpu_torch.data.synthetic import make_surface_scene
+
+    params, active = make_surface_scene(n, 9.0, 4.0, generator=torch.Generator().manual_seed(3),
+                                        device=dev)
+    rng = np.random.default_rng(3)
+    q = torch.tensor(rng.normal(size=(n, 4)), dtype=torch.float32, device=dev)
+    jitter = torch.tensor(rng.uniform(-0.7, 0.7, (n, 3)), dtype=torch.float32, device=dev)
+    params = params.replace(quats=q, log_scales=params.log_scales + jitter)
+    return params, active, Intrinsics(576.0, 576.0, 320.0, 240.0, 640, 480)
+
+
+@pytest.fixture(scope="module")
+def projection_maps():
+    """{name: (params, active, intr, T_w2c, scale_modifier, isotropic)} on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.geometry.lie import se3_exp
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    cfg = load_config(os.path.join(REPO, "configs/synthetic/bench_vga.yaml"))
+    cfg["Results"]["save_results"] = False
+    slam = SLAM(cfg, dev, seed=0)
+    slam.run(max_frames=1)
+    gmap = slam.engine.gmap
+    T0 = torch.tensor(np.asarray(slam.frontend.cameras[0].T_est), dtype=torch.float32,
+                      device=dev)
+    nudge = se3_exp(torch.tensor([0.004, -0.003, 0.005, 0.002, -0.003, 0.001], device=dev))
+    maps = {"bench_vga_init": (gmap.params.map(lambda x: x.detach().clone()),
+                               gmap.aux.active.clone(), slam.intr, nudge @ T0, 1.0, False)}
+    slam.stop()
+    del slam
+    twist = se3_exp(torch.tensor([0.05, -0.02, 0.1, 0.03, -0.05, 0.02], device=dev))
+    maps["scale_131072"] = (*_scale_map(dev), twist, 1.0, False)
+    maps["edge_rows"] = (*_edge_map(dev), twist, 1.0, False)
+    maps["edge_rows_isotropic_half"] = (*_edge_map(dev), twist, 0.5, True)
+    return maps
+
+
+MAPS = ["bench_vga_init", "scale_131072", "edge_rows", "edge_rows_isotropic_half"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MAPS)
+def test_projection_kernel_matches_eager(projection_maps, name):
+    """P1 against the eager composition on the card: radii and valid equal,
+    every continuous field within 2e-6 relative (NaN where the eager path
+    has NaN)."""
+    from monogs_dev_tpu_torch.ops import project as P
+
+    params, active, intr, T, sm, iso = projection_maps[name]
+    with torch.no_grad():
+        assert P.uses_kernels(params, 0)
+        before = B.LAUNCHES["P1"]
+        out = P.project_gaussians_cuda(params, active, T, intr, sm, iso)
+        ref = P.project_gaussians_eager(params, active, T, intr, 0, sm, iso)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["P1"] == before + 1
+    assert torch.equal(out.valid, ref.valid) and torch.equal(out.radii, ref.radii)
+    assert 0 < int(ref.valid.sum()) < ref.valid.numel() or name == "scale_131072"
+    for field in ("means2d", "conic", "color", "opacity", "depth"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field), rtol=2e-6, atol=0.0,
+                                   equal_nan=True, msg=field)
+
+
+def _pose_gradients(params, active, intr, T, sm, iso, seed=0):
+    """(P2's dL/dT through autograd, the plain version's, autograd of the
+    eager composition's) for a random weighting of every output."""
+    from monogs_dev_tpu_torch.ops import project as P
+
+    gen = torch.Generator(device=T.device).manual_seed(seed)
+    n = params.xyz.shape[0]
+    w = {k: torch.randn(s, generator=gen, device=T.device)
+         for k, s in (("means2d", (n, 2)), ("conic", (n, 3)), ("depth", (n,)),
+                      ("color", (n, 3)), ("opacity", (n,)))}
+    w["conic"] = 1e-3 * w["conic"]
+    grads = []
+    for project in (P.project_gaussians_cuda, P.project_gaussians_eager):
+        Tg = T.clone().requires_grad_(True)
+        out = project(params, active, Tg, intr, sm, iso) if project is P.project_gaussians_cuda \
+            else project(params, active, Tg, intr, 0, sm, iso)
+        loss = sum((getattr(out, k) * v).sum() for k, v in w.items())
+        grads.append(torch.autograd.grad(loss, Tg)[0])
+    plain = P.project_pose_vjp_plain(params, T, intr, w["means2d"], w["conic"], w["depth"], sm,
+                                     iso)
+    return grads[0], plain, grads[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MAPS)
+def test_projection_pose_gradient_matches_plain_and_autograd(projection_maps, name):
+    """P2 against `project_pose_vjp_plain` and against autograd of the eager
+    composition, both in float32 on the card: within 1e-5 of the largest
+    entry; the bottom row zero."""
+    before = B.LAUNCHES["P2"]
+    g_kernel, g_plain, g_auto = _pose_gradients(*projection_maps[name])
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["P2"] == before + 1
+    assert bool(torch.isfinite(g_kernel).all()) and bool((g_kernel[3] == 0.0).all())
+    scale = float(g_auto.abs().max())
+    assert scale > 0.0
+    for other in (g_plain, g_auto):
+        assert float((g_kernel - other).abs().max()) <= 1e-5 * scale, (g_kernel, other)
+
+
+@pytest.mark.gpu
+def test_projection_pose_gradient_is_deterministic(projection_maps):
+    """P2 twice on the same inputs gives the same bits (a fixed order of
+    sums, no atomics)."""
+    from monogs_dev_tpu_torch.ops import project as P
+
+    params, active, intr, T, _, _ = projection_maps["scale_131072"]
+    n = params.xyz.shape[0]
+    gen = torch.Generator(device=T.device).manual_seed(1)
+    g = (torch.randn((n, 2), generator=gen, device=T.device),
+         torch.randn((n, 3), generator=gen, device=T.device),
+         torch.randn((n,), generator=gen, device=T.device))
+    fields = (T, params.xyz, params.log_scales, params.quats, params.opacity_logit, params.f_dc,
+              params.f_rest)
+    outs = []
+    for _ in range(2):
+        launch, dT = P.project_bwd_launcher(*fields, *g, intr)
+        launch()
+        outs.append(dT)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and float(outs[0].abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+def test_projection_refused_launch_raises(projection_maps):
+    """A launch the device refuses (2,048 threads a block) raises, P1 and P2."""
+    from monogs_dev_tpu_torch.ops import project as P
+
+    params, active, intr, T, _, _ = projection_maps["edge_rows"]
+    fields = (T, params.xyz, params.log_scales, params.quats, params.opacity_logit, params.f_dc,
+              params.f_rest)
+    launch, _ = P.project_fwd_launcher(*fields, active, intr, threads=2048)
+    with pytest.raises(RuntimeError, match="project_fwd launch failed"):
+        launch()
+    launch, _ = P.project_bwd_launcher(*fields, None, None, params.xyz[:, 2].contiguous(), intr,
+                                       threads=2048)
+    with pytest.raises(RuntimeError, match="project_bwd_pose launch failed"):
+        launch()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["float64_pose", "cpu_pose", "float64_map", "cpu_active"])
+def test_projection_on_the_card_refuses_a_wrong_input(projection_maps, what):
+    """A card map takes the kernels whatever else comes with it: a pose or
+    map field of another dtype, or a pose or `active` on the CPU, raises
+    instead of running the eager composition, and launches nothing."""
+    from monogs_dev_tpu_torch.ops import project as P
+
+    params, active, intr, T, _, _ = projection_maps["edge_rows"]
+    if what == "float64_pose":
+        T = T.double()
+    elif what == "cpu_pose":
+        T = T.cpu()
+    elif what == "float64_map":
+        params = params.replace(log_scales=params.log_scales.double())
+    else:
+        active = active.cpu()
+    launches = dict(B.LAUNCHES)
+    with torch.no_grad(), pytest.raises(ValueError, match="must be"):
+        P.project_gaussians(params, active, T, intr, 0)
+    assert dict(B.LAUNCHES) == launches
+
+
+@pytest.mark.gpu
+def test_track_frame_on_a_tum_frame_kernels_match_eager(cuda, monkeypatch):
+    """The Adam tracker on frame 1 of the TUM-layout fixture (160x120),
+    from the map after frame 0's initial mapping: through P1/P2 and through
+    the eager projection, the same iteration count, and the poses no further
+    apart than 3 times the eager path's own sensitivity to rounding; the
+    kernel run projects only through P1 (no `project.eager`). P1's outputs
+    equal the eager path's bit for bit, and P2's gradient differs from
+    autograd's in rounding alone. Adam scales each component's step by its
+    own history, so a rounding-level change of a component near zero
+    becomes a step of full size: the sensitivity is how far the eager
+    path's pose moves when its gradient is scaled by 1 + 2^-22 and by
+    1 - 2^-22, the larger of the two."""
+    from monogs_dev_tpu_torch.core import frontend as frontend_mod
+    from monogs_dev_tpu_torch.core import tracking
+    from monogs_dev_tpu_torch.core.system import SLAM
+    from monogs_dev_tpu_torch.ops import project as P
+    from monogs_dev_tpu_torch.utils import profiling
+    from monogs_dev_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs/rgbd/tum/fixture_surface.yaml"))
+    cfg["Results"]["save_results"] = False
+    slam = SLAM(cfg, cuda, seed=0)
+    seen = []
+    track = tracking.track_frame
+
+    def recording(*args, **kwargs):
+        seen.append((args, kwargs))
+        return track(*args, **kwargs)
+
+    monkeypatch.setattr(frontend_mod, "track_frame", recording)
+    slam.run(max_frames=2)
+    slam.stop()
+    args, kwargs = seen[-1]
+    profiling.activate(slam.timers)
+    results = {}
+    pose_gradient = tracking.pose_gradient
+    for path in ("kernel", "eager", "eager_up", "eager_down"):
+        if path == "eager":
+            monkeypatch.setattr(P, "uses_kernels", lambda *a: False)
+        elif path != "kernel":
+            def scaled(*a, scale=1.0 + (2.0 ** -22 if path == "eager_up" else -2.0 ** -22)):
+                loss, g = pose_gradient(*a)
+                return loss, g * scale
+
+            monkeypatch.setattr(tracking, "pose_gradient", scaled)
+        tallies = dict(slam.timers.tallies)
+        launches = dict(B.LAUNCHES)
+        res = track(*args, **kwargs)
+        torch.cuda.synchronize()
+        results[path] = res
+        new = {k: slam.timers.tallies[k] - tallies.get(k, 0) for k in ("project.kernel",
+                                                                       "project.eager")}
+        if path == "kernel":
+            assert new["project.eager"] == 0 and new["project.kernel"] > 0, new
+            assert B.LAUNCHES["P1"] > launches["P1"] and B.LAUNCHES["P2"] > launches["P2"]
+        else:
+            assert new["project.kernel"] == 0 and new["project.eager"] > 0, new
+    k, e = results["kernel"], results["eager"]
+    gap = float((k.T_w2c - e.T_w2c).abs().max())
+    sensitivity = max(float((results[p].T_w2c - e.T_w2c).abs().max())
+                      for p in ("eager_up", "eager_down"))
+    print(f"track_frame: {k.n_iters} and {e.n_iters} iterations, pose gap {gap:.3e}, "
+          f"eager's sensitivity {sensitivity:.3e}")
+    assert sensitivity > 0.0
+    assert k.n_iters == e.n_iters > 0 and gap <= 3.0 * sensitivity, (
+        k.n_iters, e.n_iters, gap, sensitivity)
